@@ -1,6 +1,6 @@
 // Native image-output backend for openglraytracer_tpu.
 //
-// This is the TPU build's counterpart of the reference's C++ host-side
+// This is the JAX build's counterpart of the reference's C++ host-side
 // presentation path (the RGBA8 screen texture + blit in main.cpp:122-207,
 // 243-260 of blubs/OpenGLRaytracer): the device delivers float RGB, and this
 // library quantizes, row-flips (GL row 0 = bottom -> PNG row 0 = top), and

@@ -1,14 +1,14 @@
-"""openglraytracer_tpu — a TPU-native differentiable raytracer.
+"""openglraytracer_tpu — a differentiable raytracer in JAX.
 
 A from-scratch JAX/XLA/Pallas reimagining of the capabilities of the reference
 OpenGL compute-shader raytracer (blubs/OpenGLRaytracer): camera ray generation,
 ray-sphere / ray-OBB / ray-plane intersection, Phong ADS shading with hard
 shadow rays, and bounded reflection/refraction recursion — rebuilt as pure,
 jittable, differentiable functions over structure-of-arrays scene pytrees,
-tile-sharded over TPU device meshes.
+tile-sharded over device meshes (one or more GPUs).
 
 Reference layer map (see SURVEY.md §1):
-  L3 GLSL kernel  -> ops/ (XLA render path) + ops/pallas_render.py (Pallas kernel)
+  L3 GLSL kernel  -> ops/ (XLA render path) + ops/pallas_culled.py (Triton kernels)
   L2 C++ host     -> render/driver functions + cli.py
   L4 blit         -> utils/image.py host-side gather + PNG output
   L1 GL utilities -> the JAX/XLA toolchain itself

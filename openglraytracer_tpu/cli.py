@@ -1,7 +1,7 @@
 """Command-line interface — the build's host-application layer.
 
 The reference's 'app' is a GLFW window with a hardcoded scene and a vsync
-frame loop (main.cpp). The TPU-native equivalents:
+frame loop (main.cpp). The JAX equivalents:
 
   oglrt render   — render a scene (builtin config or JSON file) to PNG
   oglrt animate  — render the port-fidelity animated demo to a PNG sequence
@@ -104,7 +104,7 @@ def cmd_render(args):
                                  "(it accelerates bounce children)")
             cspec = suggest_child_cull_config(
                 scene, cam, h, w, spec,
-                # hot-primary dense fallback is a Mosaic-path feature; the
+                # hot-primary dense fallback is a kernel-path feature; the
                 # XLA child path gets max-sized (never-truncating) lists
                 hot_primary=(args.engine == "culled_pallas"))
             kwargs["child_cull"] = cspec
@@ -352,7 +352,7 @@ def cmd_scale(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="oglrt",
-                                description="TPU-native differentiable raytracer")
+                                description="differentiable raytracer in JAX")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("render", help="render a scene to PNG")
@@ -363,7 +363,7 @@ def main(argv=None):
     r.add_argument("--height", type=int, default=None)
     r.add_argument("--depth", type=int, default=None)
     r.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas", "culled", "culled_pallas"])
+                   choices=["auto", "xla", "culled", "culled_pallas"])
     r.add_argument("--cull-tile", type=int, default=32,
                    help="pixel tile side for engine=culled")
     r.add_argument("--child-cull", action="store_true",
@@ -391,7 +391,7 @@ def main(argv=None):
     a.add_argument("--height", type=int, default=360)
     a.add_argument("--depth", type=int, default=0)
     a.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas", "culled", "culled_pallas", "autodiff"])
+                   choices=["auto", "xla", "culled", "culled_pallas", "autodiff"])
     a.add_argument("--cull-tile", type=int, default=8,
                    help="pixel tile side for engine=culled")
     a.add_argument("--out-pattern", default="frame_{:04d}.png")
@@ -401,13 +401,12 @@ def main(argv=None):
 
     v = sub.add_parser("view", help="LIVE viewer: render the animated demo "
                        "continuously and stream it over HTTP (MJPEG) — the "
-                       "reference's real-time window for a headless TPU host")
+                       "reference's real-time window for a headless GPU host")
     v.add_argument("--width", type=int, default=1280)
     v.add_argument("--height", type=int, default=720)
     v.add_argument("--depth", type=int, default=0)
     v.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas", "culled",
-                            "culled_pallas"])
+                   choices=["auto", "xla", "culled", "culled_pallas"])
     v.add_argument("--cull-tile", type=int, default=8)
     v.add_argument("--port", type=int, default=8000)
     v.add_argument("--fps-cap", type=float, default=None,
@@ -434,7 +433,7 @@ def main(argv=None):
                    default="spheres.center,spheres.radius,materials.diffuse")
     f.add_argument("--sharded", action="store_true")
     f.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas", "culled", "culled_pallas"])
+                   choices=["auto", "xla", "culled", "culled_pallas"])
     f.add_argument("--soft", default=None, metavar="BW,GAMMA",
                    help="soft-coverage forward for silhouette-aware "
                         "geometry fitting (ops/soft.py): e.g. --soft "
@@ -463,7 +462,7 @@ def main(argv=None):
     s.add_argument("--mode", default="render", choices=["render", "step"],
                    help="forward render or full fwd+bwd training step")
     s.add_argument("--engine", default="auto",
-                   choices=["auto", "xla", "pallas"])
+                   choices=["auto", "xla"])
     s.add_argument("--devices", type=int, nargs="+", default=None,
                    help="device counts to sweep (default 1,2,4,...,all)")
     s.add_argument("--iters", type=int, default=5)
@@ -480,6 +479,8 @@ def main(argv=None):
     c.set_defaults(fn=cmd_configs)
 
     args = p.parse_args(argv)
+    from openglraytracer_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -3,7 +3,7 @@
 The reference hardcodes the scene as GLSL global initializers — an array of 5
 ``Object`` structs each holding a tagged union of Box/Sphere plus an inline
 ``Material`` (reference raytrace_compute.glsl:56-157 materials, :162-179
-box/sphere defs, :190-224 lights, :244-321 objects).  The TPU-native design
+box/sphere defs, :190-224 lights, :244-321 objects).  This design
 replaces that array-of-structs with structure-of-arrays device arrays so every
 intersection/shading op is a dense, branch-free, vmappable computation:
 

@@ -4,9 +4,9 @@ The reference tests every ray against every object (get_closest_collision's
 linear scan, raytrace_compute.glsl:738-782 — "no BVH/acceleration structure",
 SURVEY.md C18). That is O(rays x objects): fine for 5 objects, hopeless for
 the 4096-sphere benchmark config. A classic GPU raytracer would hang a BVH
-here; pointer-chasing trees are the wrong shape for the TPU's dense vector
-units, so this module uses the TPU-native equivalent — a *dense, two-level
-broad phase* with static shapes throughout:
+here; this module instead uses a *dense tile-cone broad phase* with static
+shapes throughout (dense arrays that XLA compiles without data-dependent
+control flow; a device-built BVH is an open item):
 
   1. Partition the image into pixel tiles. All primary rays in a tile share
      the camera origin and span a narrow cone: axis = mean direction,
@@ -16,7 +16,7 @@ broad phase* with static shapes throughout:
      angle(axis, c - apex) <= half_angle + asin(r / |c - apex|), evaluated
      sqrt-wise without any trig.
   3. Compact each tile's survivor set to a static top-K index list
-     (jax.lax.top_k — survivors keep ascending object order, preserving the
+     (compact_mask — survivors keep ascending object order, preserving the
      reference's first-object-wins tie semantics), gather their parameters,
      and run the exact narrow-phase scan only on rays x K.
   4. Shadow rays get the same treatment per light: the cone apex is the light
@@ -176,36 +176,34 @@ def bounce_cones(origins_t, dirs_t, active_t):
 
 
 def compact_mask(mask, k: int):
-    """Dense top-K compaction of a (T, N) bool mask.
+    """Dense per-tile compaction of a (T, N) bool mask.
 
     Returns (idx (T, K) int32 ascending among survivors, valid (T, K) bool,
-    count (T,) int32 true survivor totals — count > K means overflow).
-    idx is unspecified where ~valid (consumers gate on valid).
+    count (T,) int32 true survivor totals — count > K means overflow, which
+    callers surface, never drop silently). idx is 0 where ~valid.
 
-    Two implementations, identical contract: wide masks route to the Mosaic
-    iterated-max extraction kernel (ops/pallas_compact.py — lax.top_k over
-    (T, 4096) was the measured c5 broad-phase bottleneck, ~23 ms of a 66 ms
-    frame; VERDICT r4 next #3), narrow masks keep the XLA top_k whose fixed
-    cost is lower. OGLRT_COMPACT=topk|pallas forces either for ablation."""
-    from openglraytracer_tpu.ops.pallas_compact import (MIN_N_FOR_KERNEL,
-                                                        compact_impl,
-                                                        compact_mask_pallas)
+    Stream compaction by rank: the inclusive prefix count of survivors along
+    each row is nondecreasing and steps by one at every survivor, so the
+    j-th survivor (1-based) sits at the first column whose prefix count
+    reaches j — a binary search per output slot, O(T * K * log N) after one
+    O(T * N) prefix sum, and no sort. Inside the c5 frame on the H100 this
+    beat lax.top_k and a scatter by rank (scripts/kernel_decisions.py)."""
     n = mask.shape[-1]
-    impl = compact_impl()
-    if impl == "pallas" or (impl == "auto" and n >= MIN_N_FOR_KERNEL):
-        return compact_mask_pallas(mask, k)
-    key = jnp.where(mask, jnp.arange(n, 0, -1, dtype=jnp.int32)[None, :], 0)
-    vals, idx = jax.lax.top_k(key, min(k, n))
-    return idx.astype(jnp.int32), vals > 0, jnp.sum(mask, axis=-1,
-                                                    dtype=jnp.int32)
+    k_eff = min(k, n)
+    rank = jnp.cumsum(mask, axis=-1, dtype=jnp.int32)       # (T, N)
+    count = rank[:, -1] if n else jnp.zeros(mask.shape[:1], jnp.int32)
+    slots = jnp.arange(1, k_eff + 1, dtype=jnp.int32)
+    idx = jax.vmap(lambda r: jnp.searchsorted(
+        r, slots, side="left", method="scan_unrolled"))(rank)
+    valid = slots[None, :] <= count[:, None]
+    return jnp.where(valid, idx, 0).astype(jnp.int32), valid, count
 
 
 # ---------------------------------------------------------------------------
-# Two-level (coarse strip -> fine tile) cull compaction (r4)
+# Two-level (coarse strip -> fine tile) cull compaction — used by no engine
 # ---------------------------------------------------------------------------
-# The single-level broad phase costs O(T x N) cone tests plus a top-k over
-# (T, N) keys; the top-k is the measured c5 bottleneck (23 ms of a 66 ms
-# frame, scripts/trace_c5.py). Grouping _COARSE_GROUP consecutive tile-major
+# The single-level broad phase costs O(T x N) cone tests plus a compaction
+# of (T, N) masks. Grouping _COARSE_GROUP consecutive tile-major
 # fine tiles into a coarse strip whose cone CONTAINS every member cone
 # shrinks both: the coarse level tests (T/G, N), the fine level tests and
 # compacts only (T, Kc) coarse survivors. Because the coarse cone is a
@@ -423,7 +421,7 @@ def _segment_occluded(so_t, p_t, lpos, scx, scy, scz, sr, valid):
 
     The segment is light - p (reference :809) while the cast origin is the
     offset so_t — matching the exact path's semantics exactly. Candidates
-    are laid out (B, K, P) with pixels on the lane axis (see the narrow-
+    are laid out (B, K, P) with pixels on the minor axis (see the narrow-
     phase layout note in culled_geometry)."""
     tlx = (lpos[0] - p_t[..., 0])[:, None, :]              # (B, 1, P)
     tly = (lpos[1] - p_t[..., 1])[:, None, :]
@@ -610,13 +608,13 @@ def parse_cull_spec(cull):
 
 def cull_hot_p(cull) -> int:
     """Optional 7th spec element: hot-PRIMARY tile count for the secondary
-    (bounce-bundle) Mosaic path. Tiles whose bounce cone keeps more than Kp
+    (bounce-bundle) kernel path. Tiles whose bounce cone keeps more than Kp
     objects are routed to a dense all-objects kernel pass over the global
     object table instead of a gathered per-tile survivor list — Kp can then
     be sized by a quantile of the counts instead of the max (curved-mirror
     tiles legitimately see most of the scene; sizing every tile's static
-    list for them was the measured c4_mirror4096 bottleneck: a
-    (T, 4096, 8) gather per bounce level). 0 = no hot-primary pass
+    list for them means a (T, 4096, 8) gather per bounce level on
+    c4_mirror4096). 0 = no hot-primary pass
     (every 6-element spec behaves exactly as before)."""
     return cull[6] if len(cull) > 6 else 0
 
@@ -702,10 +700,9 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
         # flips disc's sign on tangent grazes, visibly changing ~1e-4 of
         # pixels vs the exact engine.
         #
-        # LAYOUT: candidates are (T, Kp, P) with PIXELS on the minor (lane)
-        # axis. (T, P, Kp) would put Kp on the lanes, which the TPU pads to
-        # 128 — a Kp=24 scan would compute 5x dummy lanes. P is always
-        # lane-aligned.
+        # LAYOUT: candidates are (T, Kp, P) with PIXELS on the minor
+        # (contiguous) axis, so the reductions over Kp below are strided
+        # sums over full pixel rows.
         if shared:
             ocx = (o0[0] - cx)[:, :, None]                  # (T, Kp, 1): o-c
             ocy = (o0[1] - cy)[:, :, None]
@@ -740,7 +737,7 @@ def culled_geometry(scene: Scene, origins, dirs, tile_p: int, kp: int,
         iota = jnp.arange(kp_eff, dtype=jnp.int32)[None, :, None]
         j = jnp.min(jnp.where(t == tc[:, None, :], iota, kp_eff), axis=1)
         sel = iota == j[:, None, :]                         # (T, Kp, P)
-        # one batched MXU contraction folds c/r/mat/gid of the winner
+        # one batched one-hot contraction folds c/r/mat/gid of the winner
         win = jnp.einsum("tkp,tkf->tfp", sel.astype(dtype), rows,
                          precision=jax.lax.Precision.HIGHEST)  # (T, 6, P)
         ic = jnp.any(sel & inside, axis=1)
@@ -1488,9 +1485,9 @@ def _spec_from_counts(scene: Scene, p_count, s_count, pb_count, sb_count,
         ks_m = int(counts[:, min(m, t_tiles - 1)].max()) if m < t_tiles \
             else 0
         ks_m = rounded(ks_m)
-        # measured on v5e: narrow-phase time is flat below K ~ 64 (lane/VMEM
-        # granularity floors), so reductions below that never pay for the
-        # hot pass's fixed costs — model the floor directly
+        # cost model: per-tile fixed costs put a floor of ~64 rows under
+        # each list's cost, so reductions below that never pay for the hot
+        # pass (a modelling choice, not re-measured on the GPU)
         cost = t_tiles * max(ks_m, 64) + m * n
         if best is None or cost < best[0]:
             best = (cost, ks_m, m)
@@ -1588,8 +1585,15 @@ def bounce_cull_counts(scene: Scene, camera, height: int, width: int,
 
     @jax.jit
     def child_shadow_counts(scene, co, cd, active):
-        hit, _, _ = culled_geometry(scene, co, cd, tile_p, kp_c, 8,
-                                    no_shadows, 0, kb_c, 1, active=active)
+        # kp_c is the MAXIMUM bounce-cone count, up to N on curved-mirror
+        # scenes: the XLA narrow phase would materialize (T, N, P) candidate
+        # blocks (16 GiB each at c4_mirror4096), the kernels only the
+        # (T, N, 8) survivor rows
+        from openglraytracer_tpu.ops.pallas_culled import (
+            culled_geometry_pallas)
+        hit, _, _ = culled_geometry_pallas(scene, co, cd, tile_p, kp_c, 8,
+                                           no_shadows, 0, kb_c, 1,
+                                           active=active)
         # DISTINCT-winner counts per tile (r5 hot-primary sizing): the hot
         # pass rebuilds per-tile winner lists capped at Kp for the analytic
         # backward; Kp must cover the measured winner sets (<< survivor

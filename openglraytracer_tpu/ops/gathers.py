@@ -1,9 +1,11 @@
-"""Row gather/scatter via one-hot matmuls on the MXU.
+"""Row gather/scatter via one-hot matmuls.
 
-XLA's native gather/scatter on TPU lowers to slow serialized memory ops
-(measured ~6 ms per 1M-row gather and ~11 ms per scatter-add at 1024^2);
-an explicit one-hot matrix product runs on the MXU in ~3 ms and — because
-one-hot operands are exactly 0/1 — is numerically exact at HIGHEST precision.
+A gather of table rows is written as an (R, K) one-hot matrix times the
+(K, F) table, and a scatter-add as its transpose. Because one-hot operands
+are exactly 0/1, the product is numerically exact at HIGHEST precision.
+This layer was chosen for hardware whose native gather and scatter were
+slow; on the GPU, where a native gather or an atomic scatter-add costs
+O(R), whether it still pays is not measured yet.
 
 Used for per-ray material-row gathers (shading) and winner-gradient
 scatter-adds (the analytic geometry VJP). Falls back to native take /

@@ -14,8 +14,8 @@ instead:
   3. scatter-adds the per-ray parameter cotangents into the scene gradient
      by winner index — O(R) + tiny.
 
-For the 64-sphere 1024^2 benchmark this turns a ~60 ms backward into a few
-ms, and for 4096-sphere scenes it removes an O(N) factor entirely.
+The backward is then O(rays) instead of O(rays x objects): for
+4096-sphere scenes it removes an O(N) factor entirely.
 
 All three primitive types are covered: spheres, oriented boxes (the
 reference's own demo world, raytrace_compute.glsl:261-320; slab test
@@ -55,10 +55,6 @@ from openglraytracer_tpu.ops.transforms import euler_rotation_3x3b
 
 def _forward(scene: Scene, origins, dirs, engine: str, chunk_size: int,
              shadow_lights):
-    if engine == "pallas":
-        from openglraytracer_tpu.ops.pallas_render import pallas_geometry
-        geo = pallas_geometry(scene, origins, dirs)
-        return geo.hit, geo.occluded
     if scene.boxes.count:
         hit = closest_hit(scene, origins, dirs, chunk_size=chunk_size)
     else:
@@ -128,7 +124,7 @@ def _box_recompute(bm, bx, bp, rot, o, d, inside):
     face = jnp.where(ts == boundary[:, 1:2], 1,
                      jnp.where(ts == boundary[:, 2:3], 2, 0))[:, 0]
     one_hot = (face[:, None] == jnp.arange(3)[None, :]).astype(t_b.dtype)
-    # one-hot select, not take_along_axis (slow cross-lane gather on TPU)
+    # one-hot select, not take_along_axis (a gather that breaks fusion)
     rd_face = jnp.sum(one_hot * rd, axis=-1)
     sign = jnp.where(rd_face > 0.0, -1.0, 1.0)
     n_local = one_hot * sign[:, None]

@@ -6,12 +6,12 @@ Reimplements the reference's intersection layer (raytrace_compute.glsl):
   * get_closest_collision    (:738-782)  -> closest_hit (running min)
 plus an analytic infinite-plane primitive the benchmark configs require.
 
-TPU-first design decisions (vs the reference's per-pixel scalar loop with
-divergent type dispatch):
+Design decisions (vs the reference's per-pixel scalar loop with divergent
+type dispatch):
 
   * Everything is dense math over (R rays x C objects) blocks with jnp.where
-    masking — no branches, so XLA vectorizes onto the VPU and the whole thing
-    is differentiable.
+    masking — no branches, so XLA fuses it into elementwise kernels and the
+    whole thing is differentiable.
   * Objects are scanned in fixed-size CHUNKS with a running minimum, so peak
     memory is R x chunk instead of R x N (a 2048^2 image x 4096 spheres would
     otherwise materialize 17G-element intermediates).
@@ -72,10 +72,10 @@ def _safe_normalize(v, axis=-1):
 
 
 # All K=3 contractions below are written as explicit component arithmetic
-# rather than einsum/dot: XLA would lower tiny-K dots onto the MXU, whose
-# default f32 precision on TPU rounds operands toward bf16 (~4e-3 relative
-# error on hit distances). Component math stays on the VPU in full f32 and is
-# faster for K=3 anyway.
+# rather than einsum/dot: a dot at default precision may run on the tensor
+# cores in TF32 (about three decimal digits — hit distances would be off by
+# ~1e-3 relative), and a K=3 dot is not worth a matrix unit anyway.
+# Component math stays elementwise in full f32 and fuses with its neighbours.
 
 def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
@@ -193,9 +193,8 @@ def box_candidates(o, d, mins, maxs, position, rot, valid, with_normals=True):
                      jnp.where(ts == boundary[..., 2:3], 2, 0))[..., 0]
     one_hot = (face[..., None] == jnp.arange(3)[None, None, :]) \
         .astype(t.dtype)
-    # rd on the winning axis via the one-hot (take_along_axis is a per-row
-    # dynamic gather — a cross-lane op TPU lowers pathologically: swapping it
-    # out took the animated scene's closest_hit from ~79 ms to ~3 ms at 1024²)
+    # rd on the winning axis via the one-hot (elementwise select-and-sum
+    # fuses with the slab math; a per-row take_along_axis is a gather)
     rd_face = jnp.sum(one_hot * rd, axis=-1, keepdims=True)
     sign = jnp.where(rd_face > 0.0, -1.0, 1.0)
     n_local = one_hot * sign
@@ -298,8 +297,7 @@ def _fold_chunk(best, t, n, inside, mat_ids, obj_base, chunk_start):
     wins ties within the chunk and across chunks (strict <).
 
     Selection uses dense one-hot reductions instead of argmin +
-    take_along_axis: per-row dynamic gathers are cross-lane ops that XLA/TPU
-    lowers poorly and that break fusion; min/where/sum stay on the VPU and
+    take_along_axis: per-row dynamic gathers break fusion; min/where/sum
     fuse with the candidate math."""
     c = t.shape[-1]
     tc = jnp.min(t, axis=-1)                            # (R,)
@@ -445,7 +443,7 @@ def closest_hit_sp(scene: Scene, origins, dirs,
             iota = jnp.arange(c, dtype=jnp.int32)[None, :]
             j = jnp.min(jnp.where(t == tc[:, None], iota, c), axis=-1)
             sel = iota == j[:, None]
-            # winner-center fold: exact one-hot matmul on the MXU
+            # winner-center fold: one-hot matmul, exact at HIGHEST
             cc = jnp.matmul(sel.astype(dtype), center[sl],
                             precision=jax.lax.Precision.HIGHEST)
             ic = jnp.any(sel & inside, axis=-1)

@@ -1,461 +1,299 @@
-"""Fused Mosaic Phong shading kernels (forward r4, analytic backward r5).
+"""Phong shading as Pallas kernels compiled through Triton: forward, and the
+analytic backward.
 
-The XLA shading stage (per-ray material-row routing + the multi-light ADS
-chain, reference raytrace_compute.glsl:789-840) measured ~11.7 ms of the c5
-frame (scripts/profile_culled.py) — mostly HBM traffic on (R, 4) per-light
-intermediates that XLA materializes between fusions. The forward kernel
-streams each ray tile once: material row, hit normal/point, ray dir and
-per-light occlusion bits enter VMEM, the full ambient+diffuse+specular
-chain runs in-register, and only the final RGB leaves.
+XLA splits the plain shade (``shading.phong_core``, reference
+raytrace_compute.glsl:789-840) and its autodiff transpose into a dozen
+fusions that pass (rays, 4) per-light intermediates through device memory;
+in the trace of the c3 fwd+bwd step they took 4x the time their bytes take
+at the card's peak bandwidth. Here each program shades BR rays in
+registers: the material row, hit point, normal, ray direction and occlusion
+bits are read once and only the RGB (forward) or the cotangents (backward)
+are written. The backward recomputes the Phong chain and emits the
+hand-derived cotangents in one pass — per-ray material-row, hit-point,
+normal and direction gradients, and per-program light-parameter partial
+sums (reduced in XLA). Rows are read in their (rays, C) layout with strided
+column loads, so no transpose runs around the kernels.
 
-r5 adds the ANALYTIC BACKWARD KERNEL (VERDICT r4 next #7): the r4 VJP
-replayed ``shading.phong_core`` under ``jax.vjp`` — a second XLA phong
-forward plus its transpose, whose HBM-materialized intermediates made the
-fused path a LOSS for training (r4: fwd+bwd 9.94 ms fused vs 8.51 XLA).
-The backward kernel recomputes the phong chain tile-resident and emits the
-hand-derived cotangents in one pass: per-ray material-row / hit-point /
-normal / direction gradients, and per-tile light-parameter partial sums
-(reduced over tiles in XLA). OGLRT_SHADE_BWD=xla restores the replay VJP
-for ablation; the gradient-equality tests compare the two.
+Gradients match jax.vjp(phong_core) almost everywhere: max/select gates
+take the strict-inequality branch, identical away from measure-zero ties.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from openglraytracer_tpu.ops.intersect import _SQRT_EPS
-from openglraytracer_tpu.ops.shading import _POW_EPS, phong_core
+from openglraytracer_tpu.ops.pallas_culled import (BLOCK_RAYS, _triton_call,
+                                                   _whole)
+from openglraytracer_tpu.ops.shading import _POW_EPS
 
-LANE = 128
-# per-light slots in the packed (8, 128) light-grad accumulator:
-# [gpos(3) gamb(4) gdiff(4) gspec(4)] = 15
-_LG_F = 15
-
-
-def _use_interpret() -> bool:
-    return jax.default_backend() != "tpu"
+# light table row (16): [pos(3) pad amb(4) diff(4) spec(4)]; the backward's
+# per-light partial sums use the same layout (slot 3 unused)
+_LG = 16
 
 
-def _shade_kernel(n_lights: int, lg_ref, mat_ref,
-                  dx_ref, dy_ref, dz_ref, px_ref, py_ref, pz_ref,
-                  nx_ref, ny_ref, nz_ref, occ_ref,
-                  r_ref, g_ref, b_ref):
-    # mat_ref (1, 20, BR, LANE): material_table columns per ray
-    # lg_ref (L, 16) [pos(3) pad amb(4) diff(4) spec(4)]
-    # occ_ref (1, L, BR, LANE): 1.0 = occluded
-    dx, dy, dz = dx_ref[0], dy_ref[0], dz_ref[0]
-    px, py, pz = px_ref[0], py_ref[0], pz_ref[0]
-    nx, ny, nz = nx_ref[0], ny_ref[0], nz_ref[0]
-    f32 = dx.dtype
+def _lights(lpos, lamb, ldiff, lspec):
+    lg = jnp.zeros((lpos.shape[0], _LG), lpos.dtype)
+    return (lg.at[:, 0:3].set(lpos).at[:, 4:8].set(lamb)
+            .at[:, 8:12].set(ldiff).at[:, 12:16].set(lspec))
 
-    # view = normalize(-d) (:827); _safe_normalize semantics
-    inv_d = jax.lax.rsqrt(jnp.maximum(dx * dx + dy * dy + dz * dz,
-                                      _SQRT_EPS))
-    vx, vy, vz = -dx * inv_d, -dy * inv_d, -dz * inv_d
 
-    amb = [jnp.zeros_like(dx) for _ in range(4)]
-    dif = [jnp.zeros_like(dx) for _ in range(4)]
-    spe = [jnp.zeros_like(dx) for _ in range(4)]
-    m_amb = [mat_ref[0, c] for c in range(4)]
-    m_dif = [mat_ref[0, 4 + c] for c in range(4)]
-    m_spe = [mat_ref[0, 8 + c] for c in range(4)]
-    m_emi = [mat_ref[0, 12 + c] for c in range(4)]
-    m_shin = mat_ref[0, 16]
+def _light_terms(lg_ref, j, px, py, pz, nx, ny, nz, vx, vy, vz, m_shin):
+    """The per-light Phong chain; returns every intermediate the backward
+    needs."""
+    tlx = lg_ref[j, 0] - px
+    tly = lg_ref[j, 1] - py
+    tlz = lg_ref[j, 2] - pz
+    stl = tlx * tlx + tly * tly + tlz * tlz
+    inv_tl = jax.lax.rsqrt(jnp.maximum(stl, _SQRT_EPS))
+    ldx, ldy, ldz = tlx * inv_tl, tly * inv_tl, tlz * inv_tl
+    # reflect(-l, n), then _safe_normalize
+    dn = -(ldx * nx + ldy * ny + ldz * nz)
+    rx0 = -ldx - 2.0 * dn * nx
+    ry0 = -ldy - 2.0 * dn * ny
+    rz0 = -ldz - 2.0 * dn * nz
+    sr = rx0 * rx0 + ry0 * ry0 + rz0 * rz0
+    inv_r = jax.lax.rsqrt(jnp.maximum(sr, _SQRT_EPS))
+    rx, ry, rz = rx0 * inv_r, ry0 * inv_r, rz0 * inv_r
+    ct_raw = ldx * nx + ldy * ny + ldz * nz
+    cos_phi = vx * rx + vy * ry + vz * rz
+    # _safe_pow: pow(max(base, eps), e), gated to 0 at base <= 0
+    sb = jnp.maximum(cos_phi, _POW_EPS)
+    logsb = jnp.log(sb)
+    val = jnp.exp(m_shin * logsb)
+    powv = jnp.where(cos_phi > 0.0, val, 0.0)
+    return dict(stl=stl, inv_tl=inv_tl, ld=(ldx, ldy, ldz), dn=dn, sr=sr,
+                inv_r=inv_r, r=(rx, ry, rz), ct_raw=ct_raw,
+                cos_theta=jnp.maximum(ct_raw, 0.0), cos_phi=cos_phi, sb=sb,
+                logsb=logsb, val=val, powv=powv)
 
-    for j in range(n_lights):
+
+def _phong(lg_ref, terms, m_amb, m_dif, m_spe, m_emi):
+    """ambient + diffuse + specular + emissive, each summed over the lights
+    in phong_core's order (so the kernel rounds like the XLA path); also
+    stores each light's lit * cos_theta and lit * pow terms."""
+    zero = jnp.zeros_like(m_amb[0])
+    amb, dif, spe = [zero] * 4, [zero] * 4, [zero] * 4
+    for j, t in enumerate(terms):
+        t["lit_ct"] = t["lit"] * t["cos_theta"]
+        t["lit_pw"] = t["lit"] * t["powv"]
         for c in range(4):
             amb[c] = amb[c] + lg_ref[j, 4 + c] * m_amb[c]
-
-        tlx = lg_ref[j, 0] - px
-        tly = lg_ref[j, 1] - py
-        tlz = lg_ref[j, 2] - pz
-        inv_tl = jax.lax.rsqrt(jnp.maximum(
-            tlx * tlx + tly * tly + tlz * tlz, _SQRT_EPS))
-        ldx, ldy, ldz = tlx * inv_tl, tly * inv_tl, tlz * inv_tl
-        lit = 1.0 - occ_ref[0, j]
-
-        # reflect(-ld, n) then _safe_normalize
-        dn = -(ldx * nx + ldy * ny + ldz * nz)
-        rx = -ldx - 2.0 * dn * nx
-        ry = -ldy - 2.0 * dn * ny
-        rz = -ldz - 2.0 * dn * nz
-        inv_r = jax.lax.rsqrt(jnp.maximum(rx * rx + ry * ry + rz * rz,
-                                          _SQRT_EPS))
-        rx, ry, rz = rx * inv_r, ry * inv_r, rz * inv_r
-
-        cos_theta = jnp.maximum(ldx * nx + ldy * ny + ldz * nz, 0.0)
-        cos_phi = vx * rx + vy * ry + vz * rz
-        # _safe_pow: pow(max(base, eps), e) gated at base <= 0
-        safe_base = jnp.maximum(cos_phi, _POW_EPS)
-        powv = jnp.where(cos_phi > 0.0,
-                         jnp.exp(m_shin * jnp.log(safe_base)), 0.0)
-
-        lit_ct = lit * cos_theta
-        lit_pw = lit * powv
-        for c in range(4):
-            dif[c] = dif[c] + lg_ref[j, 8 + c] * m_dif[c] * lit_ct
-            spe[c] = spe[c] + lg_ref[j, 12 + c] * m_spe[c] * lit_pw
-
-    ph = [amb[c] + dif[c] + spe[c] + m_emi[c] for c in range(4)]
-    r_ref[0] = ph[0] * ph[3]
-    g_ref[0] = ph[1] * ph[3]
-    b_ref[0] = ph[2] * ph[3]
+            dif[c] = dif[c] + t["lit"] * lg_ref[j, 8 + c] * m_dif[c] \
+                * t["cos_theta"]
+            spe[c] = spe[c] + t["lit"] * lg_ref[j, 12 + c] * m_spe[c] \
+                * t["powv"]
+    return [amb[c] + dif[c] + spe[c] + m_emi[c] for c in range(4)]
 
 
-def _shade_bwd_kernel(n_lights: int, lg_ref, mat_ref,
-                      dx_ref, dy_ref, dz_ref, px_ref, py_ref, pz_ref,
-                      nx_ref, ny_ref, nz_ref, occ_ref,
-                      gr_ref, gg_ref, gb_ref,
-                      gmat_ref, gdx_ref, gdy_ref, gdz_ref,
-                      gpx_ref, gpy_ref, gpz_ref,
-                      gnx_ref, gny_ref, gnz_ref, glg_ref):
-    """Analytic phong VJP, tile-resident: recomputes the forward chain in
-    registers and emits every cotangent in one pass. Gradient semantics
-    match jax.vjp(phong_core) almost-everywhere (max/select gates use the
-    strict-inequality branch, identical away from measure-zero ties)."""
-    dx, dy, dz = dx_ref[0], dy_ref[0], dz_ref[0]
-    px, py, pz = px_ref[0], py_ref[0], pz_ref[0]
-    nx, ny, nz = nx_ref[0], ny_ref[0], nz_ref[0]
-    g0, g1, g2 = gr_ref[0], gg_ref[0], gb_ref[0]
-    f32 = dx.dtype
-    zero = jnp.zeros_like(dx)
-
+def _load_rays(mat_ref, d_ref, p_ref, n_ref):
+    cols = [mat_ref[:, c] for c in range(17)]
+    dx, dy, dz = d_ref[:, 0], d_ref[:, 1], d_ref[:, 2]
     sd = dx * dx + dy * dy + dz * dz
     inv_d = jax.lax.rsqrt(jnp.maximum(sd, _SQRT_EPS))
-    vx, vy, vz = -dx * inv_d, -dy * inv_d, -dz * inv_d
+    view = (-dx * inv_d, -dy * inv_d, -dz * inv_d)   # normalize(-d) (:827)
+    p = (p_ref[:, 0], p_ref[:, 1], p_ref[:, 2])
+    n = (n_ref[:, 0], n_ref[:, 1], n_ref[:, 2])
+    return cols, sd, inv_d, view, p, n
 
-    m_amb = [mat_ref[0, c] for c in range(4)]
-    m_dif = [mat_ref[0, 4 + c] for c in range(4)]
-    m_spe = [mat_ref[0, 8 + c] for c in range(4)]
-    m_emi = [mat_ref[0, 12 + c] for c in range(4)]
-    m_shin = mat_ref[0, 16]
 
-    # ---- forward replay (registers only), keeping per-light residuals
-    amb = [zero, zero, zero, zero]
-    dif = [zero, zero, zero, zero]
-    spe = [zero, zero, zero, zero]
-    res = []
+def _shade_kernel(n_lights: int, lg_ref, mat_ref, d_ref, p_ref, n_ref,
+                  occ_ref, out_ref):
+    cols, _, _, (vx, vy, vz), (px, py, pz), (nx, ny, nz) = _load_rays(
+        mat_ref, d_ref, p_ref, n_ref)
+    m_amb, m_dif, m_spe, m_emi = (cols[0:4], cols[4:8], cols[8:12],
+                                  cols[12:16])
+    terms = []
     for j in range(n_lights):
-        for c in range(4):
-            amb[c] = amb[c] + lg_ref[j, 4 + c] * m_amb[c]
-        tlx = lg_ref[j, 0] - px
-        tly = lg_ref[j, 1] - py
-        tlz = lg_ref[j, 2] - pz
-        stl = tlx * tlx + tly * tly + tlz * tlz
-        inv_tl = jax.lax.rsqrt(jnp.maximum(stl, _SQRT_EPS))
-        ldx, ldy, ldz = tlx * inv_tl, tly * inv_tl, tlz * inv_tl
-        lit = 1.0 - occ_ref[0, j]
-        dn = -(ldx * nx + ldy * ny + ldz * nz)
-        rx0 = -ldx - 2.0 * dn * nx
-        ry0 = -ldy - 2.0 * dn * ny
-        rz0 = -ldz - 2.0 * dn * nz
-        sr = rx0 * rx0 + ry0 * ry0 + rz0 * rz0
-        inv_r = jax.lax.rsqrt(jnp.maximum(sr, _SQRT_EPS))
-        rx, ry, rz = rx0 * inv_r, ry0 * inv_r, rz0 * inv_r
-        ct_raw = ldx * nx + ldy * ny + ldz * nz
-        cos_theta = jnp.maximum(ct_raw, 0.0)
-        cos_phi = vx * rx + vy * ry + vz * rz
-        sb = jnp.maximum(cos_phi, _POW_EPS)
-        logsb = jnp.log(sb)
-        val = jnp.exp(m_shin * logsb)
-        powv = jnp.where(cos_phi > 0.0, val, 0.0)
-        lit_ct = lit * cos_theta
-        lit_pw = lit * powv
-        for c in range(4):
-            dif[c] = dif[c] + lg_ref[j, 8 + c] * m_dif[c] * lit_ct
-            spe[c] = spe[c] + lg_ref[j, 12 + c] * m_spe[c] * lit_pw
-        res.append((inv_tl, ldx, ldy, ldz, lit, dn, sr, inv_r, rx, ry, rz,
-                    ct_raw, cos_phi, sb, logsb, val, lit_ct, lit_pw, stl))
+        t = _light_terms(lg_ref, j, px, py, pz, nx, ny, nz, vx, vy, vz,
+                         cols[16])
+        t["lit"] = jnp.where(occ_ref[:, j], 0.0, 1.0)
+        terms.append(t)
+    ph = _phong(lg_ref, terms, m_amb, m_dif, m_spe, m_emi)
+    for c in range(3):
+        out_ref[:, c] = ph[c] * ph[3]                 # rgb * alpha (:839)
 
-    ph = [amb[c] + dif[c] + spe[c] + m_emi[c] for c in range(4)]
 
-    # ---- backward
+def _shade_bwd_kernel(n_lights: int, lg_ref, mat_ref, d_ref, p_ref, n_ref,
+                      occ_ref, g_ref, gmat_ref, gd_ref, gp_ref, gn_ref,
+                      glg_ref):
+    cols, sd, inv_d, (vx, vy, vz), (px, py, pz), (nx, ny, nz) = _load_rays(
+        mat_ref, d_ref, p_ref, n_ref)
+    m_amb, m_dif, m_spe, m_emi = (cols[0:4], cols[4:8], cols[8:12],
+                                  cols[12:16])
+    m_shin = cols[16]
+    zero = jnp.zeros_like(vx)
+
+    # ---- forward replay, keeping per-light intermediates
+    terms = []
+    for j in range(n_lights):
+        t = _light_terms(lg_ref, j, px, py, pz, nx, ny, nz, vx, vy, vz,
+                         m_shin)
+        t["lit"] = jnp.where(occ_ref[:, j], 0.0, 1.0)
+        terms.append(t)
+    ph = _phong(lg_ref, terms, m_amb, m_dif, m_spe, m_emi)
+
+    # ---- backward of rgb * alpha
+    g0, g1, g2 = g_ref[:, 0], g_ref[:, 1], g_ref[:, 2]
     g_ph = [g0 * ph[3], g1 * ph[3], g2 * ph[3],
             g0 * ph[0] + g1 * ph[1] + g2 * ph[2]]
 
-    g_m_amb = [zero, zero, zero, zero]
-    g_m_dif = [zero, zero, zero, zero]
-    g_m_spe = [zero, zero, zero, zero]
+    g_amb = [zero] * 4
+    g_dif = [zero] * 4
+    g_spe = [zero] * 4
     g_shin = zero
-    gvx = gvy = gvz = zero
-    gpx_ = gpy_ = gpz_ = zero
-    gnx_ = gny_ = gnz_ = zero
-
-    flat = jax.lax.broadcasted_iota(jnp.int32, (8, LANE), 0) * LANE \
-        + jax.lax.broadcasted_iota(jnp.int32, (8, LANE), 1)
-    lacc = jnp.zeros((8, LANE), f32)
-
-    def emit(lacc, slot, scalar):
-        return lacc + jnp.where(flat == slot, scalar, 0.0)
-
-    for j in range(n_lights):
-        (inv_tl, ldx, ldy, ldz, lit, dn, sr, inv_r, rx, ry, rz,
-         ct_raw, cos_phi, sb, logsb, val, lit_ct, lit_pw, stl) = res[j]
-
+    gv = [zero] * 3
+    gp = [zero] * 3
+    gn = [zero] * 3
+    n = (nx, ny, nz)
+    for j, t in enumerate(terms):
+        lit, lit_ct, lit_pw = t["lit"], t["lit_ct"], t["lit_pw"]
         g_lit_ct = zero
         g_lit_pw = zero
         for c in range(4):
-            g_m_amb[c] = g_m_amb[c] + lg_ref[j, 4 + c] * g_ph[c]
-            g_m_dif[c] = g_m_dif[c] + lg_ref[j, 8 + c] * lit_ct * g_ph[c]
-            g_m_spe[c] = g_m_spe[c] + lg_ref[j, 12 + c] * lit_pw * g_ph[c]
+            g_amb[c] = g_amb[c] + lg_ref[j, 4 + c] * g_ph[c]
+            g_dif[c] = g_dif[c] + lg_ref[j, 8 + c] * lit_ct * g_ph[c]
+            g_spe[c] = g_spe[c] + lg_ref[j, 12 + c] * lit_pw * g_ph[c]
             g_lit_ct = g_lit_ct + lg_ref[j, 8 + c] * m_dif[c] * g_ph[c]
             g_lit_pw = g_lit_pw + lg_ref[j, 12 + c] * m_spe[c] * g_ph[c]
 
-        g_cos_theta = lit * g_lit_ct
+        cos_phi, val, sb = t["cos_phi"], t["val"], t["sb"]
         g_val = jnp.where(cos_phi > 0.0, lit * g_lit_pw, 0.0)
-        g_shin = g_shin + g_val * val * logsb
+        g_shin = g_shin + g_val * val * t["logsb"]
         g_cos_phi = jnp.where(cos_phi > _POW_EPS,
                               g_val * val * m_shin / sb, 0.0)
-        g_ct_raw = jnp.where(ct_raw > 0.0, g_cos_theta, 0.0)
+        g_ct_raw = jnp.where(t["ct_raw"] > 0.0, lit * g_lit_ct, 0.0)
 
-        # cos_phi = v . rhat
-        gvx = gvx + g_cos_phi * rx
-        gvy = gvy + g_cos_phi * ry
-        gvz = gvz + g_cos_phi * rz
-        grhx = g_cos_phi * vx
-        grhy = g_cos_phi * vy
-        grhz = g_cos_phi * vz
-        # rhat = r0 * inv_r (normalize vjp; gate when sr <= eps)
-        rdot = rx * grhx + ry * grhy + rz * grhz
-        gate_r = (sr > _SQRT_EPS).astype(f32)
-        gr0x = inv_r * (grhx - gate_r * rx * rdot)
-        gr0y = inv_r * (grhy - gate_r * ry * rdot)
-        gr0z = inv_r * (grhz - gate_r * rz * rdot)
-        # r0 = -l - 2*dn*n
-        g_dn = -2.0 * (nx * gr0x + ny * gr0y + nz * gr0z)
-        gnx_ = gnx_ - 2.0 * dn * gr0x
-        gny_ = gny_ - 2.0 * dn * gr0y
-        gnz_ = gnz_ - 2.0 * dn * gr0z
-        glx = -gr0x
-        gly = -gr0y
-        glz = -gr0z
-        # dn = -(l . n)
-        glx = glx - g_dn * nx
-        gly = gly - g_dn * ny
-        glz = glz - g_dn * nz
-        gnx_ = gnx_ - g_dn * ldx
-        gny_ = gny_ - g_dn * ldy
-        gnz_ = gnz_ - g_dn * ldz
-        # ct_raw = l . n
-        glx = glx + g_ct_raw * nx
-        gly = gly + g_ct_raw * ny
-        glz = glz + g_ct_raw * nz
-        gnx_ = gnx_ + g_ct_raw * ldx
-        gny_ = gny_ + g_ct_raw * ldy
-        gnz_ = gnz_ + g_ct_raw * ldz
-        # l = tl * inv_tl (normalize vjp)
-        ldot = ldx * glx + ldy * gly + ldz * glz
-        gate_tl = (stl > _SQRT_EPS).astype(f32)
-        gtlx = inv_tl * (glx - gate_tl * ldx * ldot)
-        gtly = inv_tl * (gly - gate_tl * ldy * ldot)
-        gtlz = inv_tl * (glz - gate_tl * ldz * ldot)
-        # tl = lpos - p
-        gpx_ = gpx_ - gtlx
-        gpy_ = gpy_ - gtly
-        gpz_ = gpz_ - gtlz
+        r, ld, dn = t["r"], t["ld"], t["dn"]
+        view = (vx, vy, vz)
+        # cos_phi = view . rhat
+        grh = [g_cos_phi * view[i] for i in range(3)]
+        gv = [gv[i] + g_cos_phi * r[i] for i in range(3)]
+        # rhat = r0 / |r0| (normalize VJP, gated where |r0|^2 <= eps)
+        rdot = r[0] * grh[0] + r[1] * grh[1] + r[2] * grh[2]
+        gate_r = jnp.where(t["sr"] > _SQRT_EPS, 1.0, 0.0)
+        gr0 = [t["inv_r"] * (grh[i] - gate_r * r[i] * rdot)
+               for i in range(3)]
+        # r0 = -l - 2 dn n, with dn = -(l . n); ct_raw = l . n
+        g_dn = -2.0 * (n[0] * gr0[0] + n[1] * gr0[1] + n[2] * gr0[2])
+        gl = [-gr0[i] - g_dn * n[i] + g_ct_raw * n[i] for i in range(3)]
+        gn = [gn[i] - 2.0 * dn * gr0[i] - g_dn * ld[i] + g_ct_raw * ld[i]
+              for i in range(3)]
+        # l = tl / |tl|, tl = lpos - p
+        ldot = ld[0] * gl[0] + ld[1] * gl[1] + ld[2] * gl[2]
+        gate_tl = jnp.where(t["stl"] > _SQRT_EPS, 1.0, 0.0)
+        gtl = [t["inv_tl"] * (gl[i] - gate_tl * ld[i] * ldot)
+               for i in range(3)]
+        gp = [gp[i] - gtl[i] for i in range(3)]
 
-        base = j * _LG_F
-        lacc = emit(lacc, base + 0, jnp.sum(gtlx))
-        lacc = emit(lacc, base + 1, jnp.sum(gtly))
-        lacc = emit(lacc, base + 2, jnp.sum(gtlz))
+        for i in range(3):
+            glg_ref[j, i] = jnp.sum(gtl[i])
         for c in range(4):
-            lacc = emit(lacc, base + 3 + c, jnp.sum(m_amb[c] * g_ph[c]))
-            lacc = emit(lacc, base + 7 + c,
-                        jnp.sum(m_dif[c] * lit_ct * g_ph[c]))
-            lacc = emit(lacc, base + 11 + c,
-                        jnp.sum(m_spe[c] * lit_pw * g_ph[c]))
+            glg_ref[j, 4 + c] = jnp.sum(m_amb[c] * g_ph[c])
+            glg_ref[j, 8 + c] = jnp.sum(m_dif[c] * lit_ct * g_ph[c])
+            glg_ref[j, 12 + c] = jnp.sum(m_spe[c] * lit_pw * g_ph[c])
 
-    # v = u * inv_d with u = -d (normalize vjp), then g_d = -g_u
-    vdot = vx * gvx + vy * gvy + vz * gvz
-    gate_d = (sd > _SQRT_EPS).astype(f32)
-    gdx_ref[0] = -(inv_d * (gvx - gate_d * vx * vdot))
-    gdy_ref[0] = -(inv_d * (gvy - gate_d * vy * vdot))
-    gdz_ref[0] = -(inv_d * (gvz - gate_d * vz * vdot))
-    gpx_ref[0] = gpx_
-    gpy_ref[0] = gpy_
-    gpz_ref[0] = gpz_
-    gnx_ref[0] = gnx_
-    gny_ref[0] = gny_
-    gnz_ref[0] = gnz_
+    # view = u / |u| with u = -d (normalize VJP), then g_d = -g_u
+    vdot = vx * gv[0] + vy * gv[1] + vz * gv[2]
+    gate_d = jnp.where(sd > _SQRT_EPS, 1.0, 0.0)
+    view = (vx, vy, vz)
+    for i in range(3):
+        gd_ref[:, i] = -(inv_d * (gv[i] - gate_d * view[i] * vdot))
+        gp_ref[:, i] = gp[i]
+        gn_ref[:, i] = gn[i]
     for c in range(4):
-        gmat_ref[0, c] = g_m_amb[c]
-        gmat_ref[0, 4 + c] = g_m_dif[c]
-        gmat_ref[0, 8 + c] = g_m_spe[c]
-        gmat_ref[0, 12 + c] = g_ph[c]        # emissive
-    gmat_ref[0, 16] = g_shin
-    gmat_ref[0, 17] = zero
-    gmat_ref[0, 18] = zero
-    gmat_ref[0, 19] = zero
-    glg_ref[0] = lacc
+        gmat_ref[:, c] = g_amb[c]
+        gmat_ref[:, 4 + c] = g_dif[c]
+        gmat_ref[:, 8 + c] = g_spe[c]
+        gmat_ref[:, 12 + c] = g_ph[c]                # emissive
+    gmat_ref[:, 16] = g_shin
+    for c in range(17, 20):
+        gmat_ref[:, c] = zero
 
 
-def _shade_bwd_pallas(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occ_f,
-                      g, tile_p: int):
-    """Run the backward kernel; returns cotangents matching phong_fused's
-    differentiable inputs (occ_f cotangent is zeros — occlusion is binary,
-    as in the XLA path)."""
-    r_total = dirs.shape[0]
-    t_tiles = r_total // tile_p
-    br = tile_p // LANE
+def _pad_rays(xs, r_pad: int):
+    r = xs[0].shape[0]
+    if r_pad == r:
+        return xs
+    return [jnp.pad(x, ((0, r_pad - r), (0, 0))) for x in xs]
+
+
+def _row_spec(br: int, width: int):
+    return pl.BlockSpec((br, width), lambda i: (i, 0))
+
+
+def _shade_fwd(lg, mat_rows, dirs, p, n, occ):
+    r = dirs.shape[0]
+    br = BLOCK_RAYS
+    r_pad = pl.cdiv(r, br) * br
+    mat_rows, dirs, p, n, occ = _pad_rays([mat_rows, dirs, p, n, occ], r_pad)
+    n_lights = lg.shape[0]
+    out = _triton_call(
+        functools.partial(_shade_kernel, n_lights), "phong_shade",
+        (r_pad // br,),
+        [_whole(lg), _row_spec(br, 20)] + [_row_spec(br, 3)] * 3
+        + [_row_spec(br, n_lights)],
+        _row_spec(br, 3), jax.ShapeDtypeStruct((r_pad, 3), dirs.dtype),
+        lg, mat_rows, dirs, p, n, occ)
+    return out[:r]
+
+
+def _shade_bwd(lg, mat_rows, dirs, p, n, occ, g):
+    r = dirs.shape[0]
+    br = BLOCK_RAYS
+    r_pad = pl.cdiv(r, br) * br
+    mat_rows, dirs, p, n, occ, g = _pad_rays(
+        [mat_rows, dirs, p, n, occ, g], r_pad)
+    n_lights = lg.shape[0]
+    n_prog = r_pad // br
     dtype = dirs.dtype
-    n_lights = lpos.shape[0]
-    assert n_lights * _LG_F <= 8 * LANE
-
-    lg = jnp.zeros((n_lights, 16), dtype)
-    lg = lg.at[:, 0:3].set(lpos)
-    lg = lg.at[:, 4:8].set(lamb)
-    lg = lg.at[:, 8:12].set(ldiff)
-    lg = lg.at[:, 12:16].set(lspec)
-
-    mat_b = mat_rows.reshape(t_tiles, br, LANE, 20).transpose(0, 3, 1, 2)
-    occ_b = occ_f.reshape(t_tiles, br, LANE, n_lights).transpose(0, 3, 1, 2)
-
-    def blocks(x):
-        c = x.reshape(t_tiles, br, LANE, 3)
-        return c[..., 0], c[..., 1], c[..., 2]
-
-    dx, dy, dz = blocks(dirs)
-    px, py, pz = blocks(p)
-    nx, ny, nz = blocks(n)
-    gr, gg, gb = blocks(g)
-
-    ray_spec = pl.BlockSpec((1, br, LANE), lambda t: (t, 0, 0),
-                            memory_space=pltpu.VMEM)
-    mat_spec = pl.BlockSpec((1, 20, br, LANE), lambda t: (t, 0, 0, 0),
-                            memory_space=pltpu.VMEM)
-    occ_spec = pl.BlockSpec((1, n_lights, br, LANE), lambda t: (t, 0, 0, 0),
-                            memory_space=pltpu.VMEM)
-    lg_spec = pl.BlockSpec((1, 8, LANE), lambda t: (t, 0, 0),
-                           memory_space=pltpu.VMEM)
-    full = pl.BlockSpec(memory_space=pltpu.VMEM)
-    rblk = jax.ShapeDtypeStruct((t_tiles, br, LANE), dtype)
-
-    outs = pl.pallas_call(
-        functools.partial(_shade_bwd_kernel, n_lights),
-        grid=(t_tiles,),
-        in_specs=[full, mat_spec] + [ray_spec] * 9 + [occ_spec]
-        + [ray_spec] * 3,
-        out_specs=[mat_spec] + [ray_spec] * 9 + [lg_spec],
-        out_shape=[jax.ShapeDtypeStruct((t_tiles, 20, br, LANE), dtype)]
-        + [rblk] * 9
-        + [jax.ShapeDtypeStruct((t_tiles, 8, LANE), dtype)],
-        interpret=_use_interpret(),
-    )(lg, mat_b, dx, dy, dz, px, py, pz, nx, ny, nz, occ_b, gr, gg, gb)
-    gmat_b, gdx, gdy, gdz, gpx, gpy, gpz, gnx, gny, gnz, glg = outs
-
-    g_mat = gmat_b.transpose(0, 2, 3, 1).reshape(r_total, 20)
-
-    def unblocks(x, y, z):
-        return jnp.stack([x.reshape(-1), y.reshape(-1), z.reshape(-1)], -1)
-
-    g_dirs = unblocks(gdx, gdy, gdz)
-    g_p = unblocks(gpx, gpy, gpz)
-    g_n = unblocks(gnx, gny, gnz)
-
-    lsum = jnp.sum(glg, axis=0).reshape(-1)          # (1024,)
-    sl = lsum.reshape(-1)
-    idx = jnp.arange(n_lights) * _LG_F
-    g_lpos = jnp.stack([sl[idx + k] for k in range(3)], -1)
-    g_lamb = jnp.stack([sl[idx + 3 + k] for k in range(4)], -1)
-    g_ldiff = jnp.stack([sl[idx + 7 + k] for k in range(4)], -1)
-    g_lspec = jnp.stack([sl[idx + 11 + k] for k in range(4)], -1)
-    return (g_mat, g_lpos, g_lamb, g_ldiff, g_lspec, g_dirs, g_p, g_n,
-            jnp.zeros_like(occ_f))
+    rows3 = jax.ShapeDtypeStruct((r_pad, 3), dtype)
+    g_mat, g_d, g_p, g_n, g_lg = _triton_call(
+        functools.partial(_shade_bwd_kernel, n_lights), "phong_shade_bwd",
+        (n_prog,),
+        [_whole(lg), _row_spec(br, 20)] + [_row_spec(br, 3)] * 3
+        + [_row_spec(br, n_lights), _row_spec(br, 3)],
+        [_row_spec(br, 20)] + [_row_spec(br, 3)] * 3
+        + [pl.BlockSpec((None, n_lights, _LG), lambda i: (i, 0, 0))],
+        [jax.ShapeDtypeStruct((r_pad, 20), dtype), rows3, rows3, rows3,
+         jax.ShapeDtypeStruct((n_prog, n_lights, _LG), dtype)],
+        lg, mat_rows, dirs, p, n, occ, g)
+    g_lg = jnp.sum(g_lg, axis=0)
+    return (g_mat[:r], g_lg[:, 0:3], g_lg[:, 4:8], g_lg[:, 8:12],
+            g_lg[:, 12:16], g_d[:r], g_p[:r], g_n[:r])
 
 
-def _shade_pallas(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occ_f,
-                  tile_p: int):
-    r_total = dirs.shape[0]
-    t_tiles = r_total // tile_p
-    br = tile_p // LANE
-    dtype = dirs.dtype
-    n_lights = lpos.shape[0]
-
-    lg = jnp.zeros((n_lights, 16), dtype)
-    lg = lg.at[:, 0:3].set(lpos)
-    lg = lg.at[:, 4:8].set(lamb)
-    lg = lg.at[:, 8:12].set(ldiff)
-    lg = lg.at[:, 12:16].set(lspec)
-
-    mat_b = mat_rows.reshape(t_tiles, br, LANE, 20).transpose(0, 3, 1, 2)
-    occ_b = occ_f.reshape(t_tiles, br, LANE, n_lights).transpose(0, 3, 1, 2)
-
-    def blocks(x):
-        c = x.reshape(t_tiles, br, LANE, 3)
-        return c[..., 0], c[..., 1], c[..., 2]
-
-    dx, dy, dz = blocks(dirs)
-    px, py, pz = blocks(p)
-    nx, ny, nz = blocks(n)
-
-    ray_spec = pl.BlockSpec((1, br, LANE), lambda t: (t, 0, 0),
-                            memory_space=pltpu.VMEM)
-    mat_spec = pl.BlockSpec((1, 20, br, LANE), lambda t: (t, 0, 0, 0),
-                            memory_space=pltpu.VMEM)
-    occ_spec = pl.BlockSpec((1, n_lights, br, LANE), lambda t: (t, 0, 0, 0),
-                            memory_space=pltpu.VMEM)
-    full = pl.BlockSpec(memory_space=pltpu.VMEM)
-    rblk = jax.ShapeDtypeStruct((t_tiles, br, LANE), dtype)
-
-    r, g, b = pl.pallas_call(
-        functools.partial(_shade_kernel, n_lights),
-        grid=(t_tiles,),
-        in_specs=[full, mat_spec] + [ray_spec] * 9 + [occ_spec],
-        out_specs=[ray_spec] * 3,
-        out_shape=[rblk] * 3,
-        interpret=_use_interpret(),
-    )(lg, mat_b, dx, dy, dz, px, py, pz, nx, ny, nz, occ_b)
-    return jnp.stack([r.reshape(-1), g.reshape(-1), b.reshape(-1)], axis=-1)
+@jax.custom_vjp
+def phong_kernel(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occluded):
+    """shading.phong_core through the Triton kernels: same arguments (occluded
+    (R, L) bool), same (R, 3) result, analytic backward kernel."""
+    return _shade_fwd(_lights(lpos, lamb, ldiff, lspec), mat_rows, dirs, p,
+                      n, occluded)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(9,))
-def phong_fused(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occ_f,
-                tile_p: int):
-    """Fused Phong shade: forward = Mosaic kernel, backward = jax.vjp of
-    shading.phong_core (gradient-identical to the XLA path by construction).
-    occ_f: (R, L) float (1.0 = occluded) — gradients do not flow into it
-    (occlusion is binary, as in the XLA path)."""
-    return _shade_pallas(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n,
-                         occ_f, tile_p)
+def _pk_fwd(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occluded):
+    out = phong_kernel(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n,
+                       occluded)
+    return out, (mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occluded)
 
 
-def _phong_xla(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occ_f):
-    return phong_core(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n,
-                      occ_f > 0.5)
+def _pk_bwd(res, g):
+    mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occluded = res
+    grads = _shade_bwd(_lights(lpos, lamb, ldiff, lspec), mat_rows, dirs, p,
+                       n, occluded, g)
+    return grads + (None,)
 
 
-def _pf_fwd(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occ_f, tile_p):
-    out = _shade_pallas(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n,
-                        occ_f, tile_p)
-    return out, (mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occ_f)
+phong_kernel.defvjp(_pk_fwd, _pk_bwd)
 
 
-def _pf_bwd(tile_p, res, g):
-    mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occ_f = res
-    if os.environ.get("OGLRT_SHADE_BWD", "kernel") == "xla":
-        # ablation/oracle path: replay phong_core under jax.vjp (the r4
-        # backward — an extra XLA forward inside the backward)
-        _, vjp = jax.vjp(_phong_xla, mat_rows, lpos, lamb, ldiff, lspec,
-                         dirs, p, n, occ_f)
-        return vjp(g)
-    return _shade_bwd_pallas(mat_rows, lpos, lamb, ldiff, lspec, dirs, p,
-                             n, occ_f, g, tile_p)
-
-
-phong_fused.defvjp(_pf_fwd, _pf_bwd)
-
-
-def shade_fused(scene, dirs, hit, occluded, mat_rows, tile_p: int):
-    """Drop-in for shading.phong_shade_lit on the culled_pallas path:
-    requires mat_rows (R, 20) and tile-major rays with tile_p % 128 == 0."""
+def shade(scene, dirs, hit, occluded, mat_rows):
+    """Drop-in for shading.phong_shade_lit(..., mat_rows=mat_rows)."""
     lights = scene.lights
-    occ_f = occluded.astype(dirs.dtype)
-    return phong_fused(mat_rows, lights.position, lights.ambient,
-                       lights.diffuse, lights.specular, dirs, hit.p, hit.n,
-                       occ_f, tile_p)
+    return phong_kernel(mat_rows, lights.position, lights.ambient,
+                        lights.diffuse, lights.specular, dirs, hit.p, hit.n,
+                        occluded)

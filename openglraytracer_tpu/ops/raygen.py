@@ -41,7 +41,7 @@ def unproject(inv_vp, x, y, z):
     ones = jnp.ones(shape, x.dtype)
     zs = jnp.full(shape, z, x.dtype)
     clip = jnp.stack([x, y, zs, ones], axis=-1)      # (..., 4)
-    # HIGHEST precision: TPU default matmul precision would bf16-round ray dirs
+    # HIGHEST precision: at default precision the GPU may run this in TF32
     world = jnp.matmul(clip, inv_vp.T, precision=Precision.HIGHEST)
     return world[..., :3] / world[..., 3:4]
 

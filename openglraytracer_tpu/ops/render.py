@@ -131,19 +131,18 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
                     shadow_lights: tuple | None = None,
                     with_cull_stats: bool = False,
                     bounce_mask: tuple | None = None,
-                    child_cull: tuple | None = None,
-                    fused_shade: bool = True):
+                    child_cull: tuple | None = None):
     """Trace with the analytic O(rays) geometry VJP (ops/geometry.py):
     forward identical to trace_rays; backward gathers each ray's winning
     object, replays one candidate computation, and scatter-adds — instead of
     autodiff re-scanning every object. All primitive types (spheres, OBBs,
     planes) on the 'xla' engine.
 
-    engine: 'xla' (default), 'pallas' (fused Mosaic kernel forward),
-    'culled' (tile-cone broad phase, ops/accel.py — requires cull =
-    (tile_p, kp, ks) and rays in tile-major order with a shared origin), or
-    'culled_pallas' (same broad phase + VJP, narrow phases as Mosaic
-    kernels scanning the survivor lists in VMEM, ops/pallas_culled.py).
+    engine: 'xla' (default), 'culled' (tile-cone broad phase,
+    ops/accel.py — requires cull = (tile_p, kp, ks) and rays in tile-major
+    order with a shared origin), or 'culled_pallas' (same broad phase +
+    VJP, narrow phases as Triton kernels scanning each tile's survivor
+    lists, ops/pallas_culled.py).
 
     child_cull: cull spec for the BOUNCE children of a culled trace
     (size with accel.suggest_child_cull_config). Children have no shared
@@ -183,19 +182,14 @@ def trace_rays_fast(scene: Scene, origins, dirs, depth: int = 0,
                                hot_m, kb, ksb)
         mat_rows = culled_material_rows(scene, hit, aux, tile_p)
         ovf = cull_overflow_count(aux)
-        if engine == "culled_pallas" and fused_shade:
-            # fused Mosaic shade (ops/pallas_shade.py): one VMEM pass over
-            # the ray tile instead of XLA's HBM-materialized per-light
-            # chain (r4: c3 fwd 4.97 ms fused vs 7.45 ms XLA). Since r5 its
-            # custom VJP is the ANALYTIC backward kernel (not the r4 phong
-            # replay), so the fused path is also the TRAINING path —
-            # measured c3 fwd+bwd 6.72 ms fused vs 8.25 ms XLA shade.
-            from openglraytracer_tpu.ops.pallas_shade import shade_fused
 
-            def shade(hit, occ, mat_rows):
-                return shade_fused(scene, dirs, hit, occ, mat_rows, tile_p)
-        else:
-            def shade(hit, occ, mat_rows):
+        def shade(hit, occ, mat_rows):
+            with jax.named_scope("shade"):
+                if engine == "culled_pallas":
+                    # Triton forward + analytic backward kernels
+                    from openglraytracer_tpu.ops import pallas_shade
+                    return pallas_shade.shade(scene, dirs, hit, occ,
+                                              mat_rows)
                 return phong_shade_lit(scene, dirs, hit, occ,
                                        mat_rows=mat_rows)
 
@@ -245,11 +239,10 @@ def _trace_child_culled(scene: Scene, origins, dirs, active, depth: int,
     recursing into deeper levels with the same child spec. Returns
     (colors (R, 3), overflow scalar summed over this level and below).
 
-    pallas=True (VERDICT r4 next #4): the narrow phase runs the Mosaic
-    per-ray-origin kernels (pallas_culled.bounce_culled_pallas_geometry_op)
-    instead of the XLA scan — the culled_pallas parent engine's children
-    now stay on the kernel path (tile_p must be 128-aligned, which the
-    culled_pallas parent already guarantees)."""
+    pallas=True: the narrow phase runs the per-ray-origin Triton kernels
+    (pallas_culled.bounce_culled_pallas_geometry_op) instead of the XLA
+    scan, so the culled_pallas parent engine's children stay on the kernel
+    path."""
     from openglraytracer_tpu.ops.accel import (bounce_culled_geometry_op,
                                                cull_hot_p,
                                                cull_overflow_count,
@@ -261,8 +254,8 @@ def _trace_child_culled(scene: Scene, origins, dirs, active, depth: int,
     if pallas:
         from openglraytracer_tpu.ops.pallas_culled import (
             bounce_culled_pallas_geometry_op)
-        # hot-primary tiles (r5): over-cap bounce tiles take the dense
-        # global-table kernel pass — a Mosaic-path feature (the XLA child
+        # hot-primary tiles: over-cap bounce tiles take the dense
+        # global-table kernel pass — a kernel-path feature (the XLA child
         # path keeps max-sized lists)
         hp = cull_hot_p(child_cull)
         bounce_op = partial(bounce_culled_pallas_geometry_op, hot_p=hp)
@@ -297,8 +290,6 @@ def pick_tracer(scene: Scene, engine: str = "auto",
       'auto'          -> 'xla' (all primitive types, analytic VJP)
       'xla'           -> XLA forward + analytic O(R) VJP (spheres, OBBs,
                          planes)
-      'pallas'        -> Pallas kernel forward (spheres, OBBs, planes)
-                         + the same analytic O(R) VJP
       'autodiff'      -> pure-XLA forward AND autodiff backward (the
                          gradient reference)
     """
@@ -374,7 +365,7 @@ def trace_rays_stack(scene: Scene, origins, dirs, depth: int,
     cull (r5, VERDICT r4 next #5): a parse_cull_spec tuple switches every
     DFS step onto the SECONDARY-RAY culled path (bounce cones over the
     step's live bundle + survivor-list narrow phase; engine='culled' = XLA
-    narrow phase, 'culled_pallas' = Mosaic per-ray kernels) — deep glass at
+    narrow phase, 'culled_pallas' = Triton per-ray kernels) — deep glass at
     4096 objects finally composes with culling. Rays must be TILE-MAJOR
     (accel.tile_image order, which the scan preserves level to level), the
     spec must cover every level's bundles (size with headroom; overflow is
@@ -622,8 +613,7 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
            bounce: str = "tree",
            with_cull_stats: bool = False,
            bounce_mask: tuple | None = None,
-           child_cull: tuple | None = None,
-           fused_shade: bool = True):
+           child_cull: tuple | None = None):
     """Render an (H, W, 3) image. Pure function of (scene, camera) — the
     reference's statelessness (everything recomputed from `time` each frame,
     SURVEY.md §5 checkpoint entry) preserved by construction.
@@ -641,7 +631,7 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
 
     bounce: 'tree' (static unroll, O(2^depth) live intermediates) or
     'stack' (DFS-scan stack machine, O(depth) memory — use for depth >= 3
-    with refraction; engines xla/pallas only).
+    with refraction).
 
     with_cull_stats: return (image, overflow) where overflow is a device
     int32 scalar counting culled-engine K overflows (0 for exact engines).
@@ -658,7 +648,7 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
     out = _render_jit(scene, camera, height, width, depth, chunk_size,
                       remat, row_block, mirror_only, engine, cull,
                       shadow_lights, bounce, with_cull_stats, bounce_mask,
-                      child_cull, fused_shade)
+                      child_cull)
     return out
 
 
@@ -666,8 +656,7 @@ def render(scene: Scene, camera: Camera, height: int, width: int,
                                    "remat", "row_block", "mirror_only",
                                    "engine", "cull", "shadow_lights",
                                    "bounce", "with_cull_stats",
-                                   "bounce_mask", "child_cull",
-                                   "fused_shade"))
+                                   "bounce_mask", "child_cull"))
 def _render_jit(scene: Scene, camera: Camera, height: int, width: int,
                 depth: int, chunk_size: int, remat: bool,
                 row_block: int | None, mirror_only: bool, engine: str,
@@ -676,8 +665,7 @@ def _render_jit(scene: Scene, camera: Camera, height: int, width: int,
                 bounce: str = "tree",
                 with_cull_stats: bool = False,
                 bounce_mask: tuple = (True, True),
-                child_cull: tuple | None = None,
-                fused_shade: bool = True):
+                child_cull: tuple | None = None):
     origins, dirs = generate_rays(camera, height, width)
 
     if engine in ("culled", "culled_pallas"):
@@ -686,10 +674,9 @@ def _render_jit(scene: Scene, camera: Camera, height: int, width: int,
         assert cull is not None, \
             f"engine='{engine}' needs cull=((th, tw), kp, ks[, hot_m[, kb, ksb]])"
         if bounce == "stack" and not mirror_only:
-            # r5 (VERDICT r4 next #5): deep recursion x culling composes —
-            # every DFS step runs the secondary-ray culled path (bounce
-            # cones + survivor narrow phase, Mosaic kernels for
-            # culled_pallas). The spec must cover bounce bundles too: size
+            # deep recursion x culling composes — every DFS step runs the
+            # secondary-ray culled path (bounce cones + survivor narrow
+            # phase, Triton kernels for culled_pallas). The spec must cover bounce bundles too: size
             # it with suggest_child_cull_config-style headroom; overflow is
             # counted per step and summed (never silent).
             from openglraytracer_tpu.ops.accel import cull_hot_p
@@ -729,7 +716,7 @@ def _render_jit(scene: Scene, camera: Camera, height: int, width: int,
                               shadow_lights=shadow_lights,
                               with_cull_stats=with_cull_stats,
                               bounce_mask=bounce_mask,
-                              child_cull=cc, fused_shade=fused_shade)
+                              child_cull=cc)
         if with_cull_stats:
             colors, ovf = out
             return untile_image(colors, height, width, th, tw), ovf
@@ -739,8 +726,8 @@ def _render_jit(scene: Scene, camera: Camera, height: int, width: int,
     d = dirs.reshape(-1, 3)
 
     if bounce == "stack" and not mirror_only:
-        assert engine in ("auto", "xla", "pallas"), \
-            "bounce='stack' supports engines xla/pallas"
+        assert engine in ("auto", "xla"), \
+            "bounce='stack' without cull supports engine xla"
         eng = "xla" if engine == "auto" else engine
 
         def tracer(s, o, d, depth, chunk_size=512, remat=False):

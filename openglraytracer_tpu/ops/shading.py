@@ -63,9 +63,9 @@ def gather_materials(scene: Scene, material_id):
     """Gather per-ray material rows. Returns a Materials-like namedtuple of
     (R, ...) arrays.
 
-    The packed (K, 20) table is fetched with a single one-hot MXU matmul
-    (ops/gathers.py) — ~15x faster than 8 separate XLA gathers on TPU, and
-    its transpose (the materials gradient) becomes a single MXU scatter."""
+    The packed (K, 20) table is fetched with a single one-hot matmul
+    (ops/gathers.py) instead of 8 separate gathers, and its transpose (the
+    materials gradient) becomes a single one-hot scatter."""
     from openglraytracer_tpu.ops.gathers import gather_rows
     rows = gather_rows(material_table(scene), material_id)    # (R, 20)
     return materials_from_rows(scene, rows)
@@ -128,9 +128,8 @@ def shadow_masks(scene: Scene, hit: Hit, chunk_size: int = 512,
 
 
 def phong_core(mat_rows, lpos, lamb, ldiff, lspec, dirs, p, n, occluded):
-    """ADS Phong from raw arrays — the single source of the lighting math,
-    shared by the XLA path (here) and the fused Pallas shade kernel's VJP
-    replay (ops/pallas_shade.py). mat_rows (R, 20) packed material rows
+    """ADS Phong from raw arrays — the single source of the lighting math.
+    mat_rows (R, 20) packed material rows
     (material_table layout); lpos/lamb/ldiff/lspec the (L, ...) light
     columns; occluded (R, L) bool. Returns (R, 3)."""
     ambient = jnp.zeros_like(mat_rows[..., 0:4])    # (R, 4)

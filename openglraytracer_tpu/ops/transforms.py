@@ -5,7 +5,7 @@ in standard row-vector-on-the-right convention: a GLSL column-major initializer
 ``result[col][row] = v`` is the same matrix as ``M[row, col] = v`` here, so all
 matrices below multiply column vectors ``M @ v`` exactly like the GLSL does.
 
-A key TPU-first departure from the reference: the GLSL rebuilds the projection,
+A key departure from the reference: the GLSL rebuilds the projection,
 view, and inverse view-projection matrices in every one of the 921,600 per-pixel
 shader invocations (raytrace_compute.glsl:366-367, :383). Here they are computed
 once per frame on 4x4 matrices (microseconds) and broadcast into ray
@@ -23,9 +23,10 @@ from openglraytracer_tpu.models.scene import Camera
 
 DEG_TO_RAD = jnp.pi / 180.0
 
-# 4x4 matrix products are computed at HIGHEST precision: TPU matmuls default
-# to bf16-rounded operands, which would put ~1e-3 error into every camera
-# matrix. These run once per frame, so the cost is nil.
+# 4x4 matrix products are computed at HIGHEST precision: at default
+# precision the GPU may run them in TF32 (about three decimal digits), which
+# would put ~1e-3 error into every camera matrix. These run once per frame,
+# so the cost is nil.
 import jax.lax as _lax
 
 
@@ -122,7 +123,7 @@ def euler_rotation_3x3b(angles):
     """Batched componentwise Rz(yaw) @ Rx(pitch) @ Ry(roll): angles
     (..., 3) degrees -> (..., 3, 3). Identical math to euler_rotation_3x3
     but written as elementwise products so a per-RAY batch (millions in the
-    analytic OBB VJP) stays on the VPU instead of lowering 4x4 matmuls."""
+    analytic OBB VJP) stays elementwise instead of lowering 4x4 matmuls."""
     r = DEG_TO_RAD * jnp.asarray(angles)
     cp, sp = jnp.cos(r[..., 0]), jnp.sin(r[..., 0])   # pitch (x)
     cy, sy = jnp.cos(r[..., 1]), jnp.sin(r[..., 1])   # yaw   (z)

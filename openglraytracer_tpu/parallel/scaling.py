@@ -12,13 +12,13 @@ Mrays/s plus efficiency relative to perfect linear scaling from the
 The forward render is communication-free (each GLSL invocation wrote one
 disjoint pixel, raytrace_compute.glsl:404 — here each device owns a pixel
 tile), so the expected loss is only dispatch overhead; the train step adds
-the gradient psum over ICI/DCN, which XLA overlaps with the backward.
+the gradient psum across devices, which XLA overlaps with the backward.
 
-Runs anywhere jax.devices() shows >1 device: a real slice, a multi-host pod
+Runs anywhere jax.devices() shows >1 device: the GPUs of a host, several hosts
 (call parallel.distributed.init_distributed first; every process runs the
 same harness and the timings are device-global), or the CPU-virtual mesh
 (XLA_FLAGS=--xla_force_host_platform_device_count=8) for CI smoke tests —
-CPU numbers validate the harness mechanics, not TPU efficiency.
+CPU numbers validate the harness mechanics, not device efficiency.
 """
 
 from __future__ import annotations

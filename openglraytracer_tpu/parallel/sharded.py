@@ -32,7 +32,7 @@ from openglraytracer_tpu.parallel.mesh import AXIS_X, AXIS_Y
          static_argnames=("height", "width", "depth", "chunk_size", "remat",
                           "mirror_only", "mesh", "engine", "cull",
                           "shadow_lights", "with_cull_stats",
-                          "bounce_mask", "child_cull", "fused_shade"))
+                          "bounce_mask", "child_cull"))
 def render_sharded(scene: Scene, camera: Camera, height: int, width: int,
                    *, mesh: Mesh, depth: int = 0, chunk_size: int = 512,
                    remat: bool = False, mirror_only: bool = False,
@@ -40,8 +40,7 @@ def render_sharded(scene: Scene, camera: Camera, height: int, width: int,
                    shadow_lights: tuple | None = None,
                    with_cull_stats: bool = False,
                    bounce_mask: tuple = (True, True),
-                   child_cull: tuple | None = None,
-                   fused_shade: bool = True):
+                   child_cull: tuple | None = None):
     """Render (H, W, 3), pixel tiles sharded over the mesh, scene replicated.
 
     Returns a global jax.Array with NamedSharding(mesh, P('dx','dy',None)).
@@ -89,8 +88,7 @@ def render_sharded(scene: Scene, camera: Camera, height: int, width: int,
                 chunk_size=chunk_size, engine=engine,
                 cull=(cth * ctw, kp, ks, hot_m, kb, ksb),
                 shadow_lights=shadow_lights, with_cull_stats=True,
-                bounce_mask=bounce_mask, child_cull=cc,
-                fused_shade=fused_shade)
+                bounce_mask=bounce_mask, child_cull=cc)
             img = untile_image(colors, o_tile.shape[0], o_tile.shape[1],
                                cth, ctw)
             return img, jax.lax.psum(ovf, (AXIS_X, AXIS_Y))

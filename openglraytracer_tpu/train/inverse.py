@@ -66,7 +66,7 @@ class FitConfig:
     log_every: int = 10
     checkpoint_dir: str | None = None
     checkpoint_every: int = 100
-    engine: str = "auto"            # 'auto' | 'xla' | 'pallas' | 'culled'
+    engine: str = "auto"  # 'auto' | 'xla' | 'culled' | 'culled_pallas'
     cull: tuple | None = None       # ((th, tw), kp, ks) for engine='culled'
     child_cull: tuple | None = None  # bounce-child cull spec (culled engines)
     row_block: int | None = None    # bound memory at high resolutions
@@ -111,10 +111,6 @@ def make_train_step(camera: Camera, cfg: FitConfig, mesh=None,
         raise ValueError("multi-view fitting is a soft-stage feature "
                          "(hard cull specs are single-camera)")
 
-    # fused_shade=True (r5): the Mosaic shade kernel's VJP is now the
-    # ANALYTIC backward kernel (ops/pallas_shade.py, OGLRT_SHADE_BWD=xla
-    # for the replay ablation) — measured c3 fwd+bwd 8.25 -> 6.47 ms, so
-    # training keeps the fused path it had to avoid in r4.
     def loss_fn(params, scene, target, shadow_lights, bounce_mask):
         s = apply_params(scene, params)
         if cfg.soft is not None:

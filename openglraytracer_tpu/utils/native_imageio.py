@@ -1,26 +1,43 @@
 """ctypes bindings for the native C++ image encoder (native/imageio.cpp).
 
-Loads native/libimageio.so when present; importers catch failure and fall
-back to the pure-Python encoder (utils/image.py)."""
+The library is built from source with ``make -C native`` on first use into
+native/build/ (gitignored); importers catch failure and fall back to the
+pure-Python encoder (utils/image.py)."""
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 
 import numpy as np
 
 _lib = None
+_NATIVE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "native")
+LIB_PATH = os.path.join(_NATIVE, "build", "libimageio.so")
+
+
+def build() -> str:
+    """Build native/build/libimageio.so if it is missing or older than its
+    source. Each build goes to a private directory and is renamed into
+    place, so concurrent first uses cannot see a half-written library."""
+    src = os.path.join(_NATIVE, "imageio.cpp")
+    if os.path.exists(LIB_PATH) and \
+            os.path.getmtime(LIB_PATH) >= os.path.getmtime(src):
+        return LIB_PATH
+    tmp = os.path.join("build", f"tmp-{os.getpid()}")
+    subprocess.run(["make", "-s", "-C", _NATIVE, f"BUILD={tmp}"], check=True)
+    os.replace(os.path.join(_NATIVE, tmp, "libimageio.so"), LIB_PATH)
+    os.rmdir(os.path.join(_NATIVE, tmp))
+    return LIB_PATH
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    path = os.path.join(root, "native", "libimageio.so")
-    lib = ctypes.CDLL(path)
+    lib = ctypes.CDLL(build())
     lib.oglrt_encode_png.restype = ctypes.c_long
     lib.oglrt_encode_png.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,

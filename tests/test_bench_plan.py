@@ -8,7 +8,7 @@ Strategy: iterate bench.PLAN itself (not a copy) so a new plan row with an
 unhandled engine string fails HERE, on CPU, at tiny shapes — same
 bench_config code path, tiny scene substituted for the graded one (the
 wiring under test is engine dispatch + cull-spec construction, which is
-scene-size independent). Pallas kernels run in interpret mode on CPU.
+scene-size independent). Triton kernels run in interpret mode on CPU.
 """
 
 import jax
@@ -28,7 +28,7 @@ _TINY = {
     "c4_mirror4096": lambda: sphere_grid_scene(4, reflectivity=0.6),
 }
 _H = _W = 32
-_TILE = 16   # tile_p = 256 = 2 * LANE, the Mosaic kernels' minimum layout
+_TILE = 16   # tile_p = 256: one 256-ray kernel program per tile
 
 
 def test_plan_configs_exist():
@@ -37,7 +37,7 @@ def test_plan_configs_exist():
         if child:
             assert BENCH_CONFIGS[cfg][3] > 0, \
                 f"{row}: use_child_cull needs depth > 0"
-        assert engine in ("xla", "pallas", "culled", "culled_pallas"), \
+        assert engine in ("xla", "culled", "culled_pallas"), \
             f"{row}: unknown engine {engine}"
 
 
@@ -78,3 +78,19 @@ def test_stack_glass_row_runs():
     img, ovf = render(scene, cam, 32, 32, depth=2, engine="culled_pallas",
                       bounce="stack", cull=spec, with_cull_stats=True)
     assert img.shape == (32, 32, 3)
+
+
+def test_device_peaks_h100_and_unknown():
+    """One peak table keyed by device_kind; a card not in it is an error."""
+    peaks = bench.device_peaks("NVIDIA H100 80GB HBM3")
+    assert peaks == {"f32_flops": 67e12, "hbm_bytes_per_s": 3.35e12}
+    with pytest.raises(KeyError, match="no peak rates"):
+        bench.device_peaks("cpu")
+
+
+def test_add_utilization():
+    row = {"fwd_bwd_ms": 2.0, "fwd_bwd_flops": 67e9,
+           "fwd_bwd_bytes_accessed": 3.35e9}
+    bench.add_utilization(row, bench.device_peaks("NVIDIA H100 80GB HBM3"))
+    assert row["f32_util_vs_peak"] == 0.5
+    assert row["hbm_util_vs_peak"] == 0.5

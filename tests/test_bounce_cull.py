@@ -224,11 +224,11 @@ def test_child_culled_obb_matches_dense():
 
 
 # ---------------------------------------------------------------------------
-# Per-ray-origin Mosaic kernels for bounce children (r5, VERDICT r4 next #4)
+# Per-ray-origin Triton kernels for bounce children
 # ---------------------------------------------------------------------------
 
 def test_bounce_pallas_matches_xla_bounce():
-    """The per-ray Mosaic narrow phase == the XLA secondary culled pass.
+    """The per-ray Triton narrow phase == the XLA secondary culled pass.
 
     Tolerance note: unlike the SHARED-origin kernels (whose per-survivor
     scalars pin the expression shape and match XLA bit-exactly in
@@ -278,7 +278,7 @@ def test_bounce_pallas_matches_xla_bounce():
 
 def test_child_culled_pallas_image_matches_dense():
     """culled_pallas + child_cull: the full depth-1 mirror image through the
-    per-ray Mosaic kernels equals the dense child scan's."""
+    per-ray Triton kernels equals the dense child scan's."""
     scene, cam = _mirror_scene()
     cull, child = _specs(scene, cam)
     img_dense = render(scene, cam, H, W, depth=1, engine="culled", cull=cull)
@@ -307,7 +307,7 @@ def test_child_culled_pallas_gradients_match_dense():
     def loss(params, engine, child_cull):
         s = apply_params(scene, params)
         img = render(s, cam, H, W, depth=1, engine=engine, cull=cull,
-                     child_cull=child_cull, fused_shade=False,
+                     child_cull=child_cull,
                      bounce_mask=static_bounce_mask(scene))
         return jnp.mean(jnp.square(img - 0.25))
 

@@ -1,4 +1,4 @@
-"""Multi-process DCN tests: spawned subprocesses running
+"""Multi-process tests: spawned subprocesses running
 jax.distributed.initialize + the process_allgather branch of gather_image
 (SURVEY.md §4 'multi-process tests via jax.distributed.initialize with
 spawned subprocesses'). Plus unit tests of the init auto-detect logic.
@@ -41,26 +41,32 @@ def test_two_process_dcn_gather():
         assert f"proc {i} OK" in out
 
 
+_CLUSTER_VARS = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
+                 "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
+
+
 def test_pod_environment_detection(monkeypatch):
     from openglraytracer_tpu.parallel import distributed as d
-    for k in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-              "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES"):
+    for k in _CLUSTER_VARS:
         monkeypatch.delenv(k, raising=False)
-    assert not d._pod_environment()
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host0")
-    assert not d._pod_environment()       # single worker: stay single-process
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host0,host1")
-    assert d._pod_environment()
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES")
-    monkeypatch.setenv("COORDINATOR_ADDRESS", "10.0.0.1:1234")
-    assert d._pod_environment()
+    assert d.cluster_from_env() is None
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_PROCESS_ID", "1")
+    assert d.cluster_from_env() is None    # no coordinator: single-process
+    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1234")
+    assert d.cluster_from_env() == dict(coordinator_address="localhost:1234",
+                                        num_processes=2, process_id=1)
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:99")
+    assert d.cluster_from_env()["coordinator_address"] == "localhost:99"
+    monkeypatch.delenv("JAX_PROCESS_ID")
+    with pytest.raises(RuntimeError, match="JAX_PROCESS_ID"):
+        d.cluster_from_env()
 
 
 def test_init_distributed_noop_single_host(monkeypatch):
-    """No args + no pod env: must not touch jax.distributed at all."""
+    """No args + no cluster env: must not touch jax.distributed at all."""
     from openglraytracer_tpu.parallel import distributed as d
-    for k in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-              "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES"):
+    for k in _CLUSTER_VARS:
         monkeypatch.delenv(k, raising=False)
     called = []
     import jax
@@ -71,16 +77,20 @@ def test_init_distributed_noop_single_host(monkeypatch):
 
 
 def test_init_distributed_pod_env_autoinit(monkeypatch):
-    """A pod-standard environment must trigger the no-arg auto-init (the
-    round-1 dead-code bug: it silently stayed single-process)."""
+    """A cluster described by the environment must initialize with its
+    coordinator, process count and id (nothing on a GPU host auto-detects
+    them)."""
     from openglraytracer_tpu.parallel import distributed as d
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host0,host1,host2,host3")
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:4321")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
+    monkeypatch.setenv("JAX_PROCESS_ID", "3")
     called = []
     import jax
     monkeypatch.setattr(jax.distributed, "initialize",
                         lambda *a, **kw: called.append((a, kw)))
     d.init_distributed()
-    assert called == [((), {})]
+    assert called == [((), dict(coordinator_address="localhost:4321",
+                                num_processes=4, process_id=3))]
 
 
 def test_init_distributed_explicit_errors_propagate(monkeypatch):

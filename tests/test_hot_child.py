@@ -1,8 +1,8 @@
-"""Hot-primary tiles for the secondary Mosaic path (r5).
+"""Hot-primary tiles for the secondary kernel path.
 
 Bounce-cone survivor counts are extremely heavy-tailed on curved-mirror
 scenes (c4_mirror4096: p50 = 0, p90 = N), so sizing the static per-tile
-row gather by the max count was the measured bottleneck. With hot_p > 0,
+row gather by the max count is wasteful. With hot_p > 0,
 Kp becomes a quantile cap and over-cap tiles run a dense pass over the
 GLOBAL object table (exact — every object scanned); their survivor lists
 are rebuilt posthoc as distinct-winner lists so material routing and the

@@ -108,3 +108,26 @@ def test_yuv420_transport_matches_rgb_jpeg():
     err = np.abs(a - b)
     assert err.mean() < 3.0, f"mean {err.mean()}"
     assert np.percentile(err, 99) <= 12, f"p99 {np.percentile(err, 99)}"
+
+
+def test_load_png_roundtrip_without_pil(tmp_path, monkeypatch):
+    """The PNGs the repo writes load back with zlib alone (PIL blocked)."""
+    import sys
+
+    from openglraytracer_tpu.utils.image import load_png, save_png
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    img = np.random.default_rng(1).random((9, 13, 3)).astype(np.float32)
+    path = str(tmp_path / "x.png")
+    save_png(img, path, gather=False)
+    np.testing.assert_allclose(load_png(path), img, atol=0.5 / 255 + 1e-6)
+
+
+def test_native_library_builds_from_source():
+    """libimageio.so is not committed: the first use builds it with make
+    into native/build/ (gitignored)."""
+    import os
+
+    from openglraytracer_tpu.utils import native_imageio
+    path = native_imageio.build()
+    assert os.path.exists(path)
+    assert os.path.basename(os.path.dirname(path)) == "build"

@@ -1,16 +1,15 @@
-"""Mosaic compaction kernel (ops/pallas_compact.py) vs the XLA top_k path:
-identical (idx-where-valid, valid, count) on every mask shape class the
-broad phase produces — random, empty tiles, full tiles, overflow — plus
-whole-engine equality with the implementation forced each way."""
-
-import os
+"""Survivor compaction (accel.compact_mask, cumsum-rank stream compaction)
+against a lax.top_k reference: identical (idx-where-valid, valid, count) on
+every mask shape class the broad phase produces — random, empty tiles, full
+tiles, overflow — plus whole-engine equality with either compaction."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openglraytracer_tpu.ops.pallas_compact import compact_mask_pallas
+from openglraytracer_tpu.ops import accel
+from openglraytracer_tpu.ops.accel import compact_mask
 
 
 def _topk_reference(mask, k):
@@ -23,7 +22,7 @@ def _topk_reference(mask, k):
 
 def _assert_same(mask, k):
     ia, va, ca = _topk_reference(mask, k)
-    ib, vb, cb = compact_mask_pallas(mask, k)
+    ib, vb, cb = compact_mask(mask, k)
     np.testing.assert_array_equal(np.asarray(va), np.asarray(vb))
     np.testing.assert_array_equal(np.asarray(ca), np.asarray(cb))
     # idx is unspecified where ~valid in both implementations
@@ -57,7 +56,7 @@ def test_single_survivor_positions():
     mask = np.zeros((t, n), bool)
     mask[0, [5, 100, 511]] = True
     mask[2, [0]] = True
-    idx, valid, count = compact_mask_pallas(jnp.asarray(mask), k)
+    idx, valid, count = compact_mask(jnp.asarray(mask), k)
     np.testing.assert_array_equal(np.asarray(idx[0, :3]), [5, 100, 511])
     assert bool(valid[0, 2]) and not bool(valid[0, 3])
     np.testing.assert_array_equal(np.asarray(idx[2, :1]), [0])
@@ -66,7 +65,7 @@ def test_single_survivor_positions():
 
 def test_under_jit_and_gridless_shapes():
     mask = jnp.asarray(np.random.default_rng(0).random((5, 200)) < 0.1)
-    f = jax.jit(lambda m: compact_mask_pallas(m, 12))
+    f = jax.jit(lambda m: compact_mask(m, 12))
     ia, va, ca = f(mask)
     ib, vb, cb = _topk_reference(mask, 12)
     np.testing.assert_array_equal(np.asarray(ia * va), np.asarray(ib * vb))
@@ -76,7 +75,7 @@ def test_under_jit_and_gridless_shapes():
 @pytest.mark.smoke
 def test_engine_equality_forced_both_impls(monkeypatch):
     """The whole culled engine renders identically with the compaction
-    forced to either implementation (the real integration contract)."""
+    swapped for the top_k reference (the real integration contract)."""
     from openglraytracer_tpu.models.builders import sphere_grid_scene
     from openglraytracer_tpu.ops.accel import suggest_cull_config
     from openglraytracer_tpu.ops.render import render
@@ -84,9 +83,12 @@ def test_engine_equality_forced_both_impls(monkeypatch):
     scene, cam = sphere_grid_scene(4)
     spec = suggest_cull_config(scene, cam, 64, 64, (16, 16))
     imgs = {}
-    for impl in ("topk", "pallas"):
-        monkeypatch.setenv("OGLRT_COMPACT", impl)
-        jax.clear_caches()      # the impl switch is read at trace time
+    for impl in ("topk", "cumsum"):
+        if impl == "topk":
+            monkeypatch.setattr(accel, "compact_mask", _topk_reference)
+        else:
+            monkeypatch.undo()
+        jax.clear_caches()      # the compaction is chosen at trace time
         imgs[impl] = np.asarray(render(scene, cam, 64, 64, engine="culled",
                                        cull=spec))
-    np.testing.assert_array_equal(imgs["topk"], imgs["pallas"])
+    np.testing.assert_array_equal(imgs["topk"], imgs["cumsum"])

@@ -1,11 +1,11 @@
 """Culled Pallas engine (ops/pallas_culled.py): the broad phase is shared
-with ops/accel.py verbatim, so the contract here is that the Mosaic narrow
+with ops/accel.py verbatim, so the contract here is that the Triton narrow
 phases reproduce the culled engine's outputs — discrete records identical,
 continuous fields to fp tolerance — and that the shared analytic VJP makes
 engine='culled_pallas' exactly as differentiable as engine='culled'.
 
-On CPU (this test environment) the kernels run in interpret mode; bench.py
-times the compiled Mosaic code on the chip.
+On CPU (this test environment) the kernels run in interpret mode;
+chip_smoke.py compiles them through Triton on the GPU.
 """
 
 import jax
@@ -26,7 +26,7 @@ from openglraytracer_tpu.ops.raygen import generate_rays
 from openglraytracer_tpu.ops.render import render, trace_rays_fast
 from openglraytracer_tpu.train.inverse import apply_params, extract_params
 
-TILE = (16, 16)          # tile_p = 256 = 2 * LANE
+TILE = (16, 16)          # tile_p = 256: one program of BLOCK_RAYS rays
 TILE_P = TILE[0] * TILE[1]
 H = W = 64
 
@@ -215,34 +215,45 @@ def test_culled_pallas_overflow_reporting():
     assert int(cull_overflow_count(aux_p)) > 0
 
 
-def test_culled_pallas_rejects_unaligned_tile():
+@pytest.mark.parametrize("tile_p,expect", [
+    (4096, (256, 4096)),    # c3: 16 programs per tile
+    (1024, (256, 1024)),    # c5: 4 programs per tile
+    (256, (256, 256)),
+    (144, (256, 256)),      # 12x12 tile: one program, 112 padding rays
+    (300, (256, 512)),      # two programs, 212 padding rays
+    (64, (64, 64)),         # small tile: one program of the whole tile
+])
+def test_ray_block_split_and_padding(tile_p, expect):
+    from openglraytracer_tpu.ops.pallas_culled import ray_block
+    assert ray_block(tile_p) == expect
+
+
+def test_culled_pallas_pads_unaligned_tile():
+    """A 12x12 tile (144 rays) runs in one 256-ray program: the padding
+    rays are sliced off and the result matches the culled engine."""
     scene, cam = sphere_grid_scene(4)
-    o, d = _tiled_rays(cam)
-    with pytest.raises(AssertionError, match="128"):
-        culled_geometry_pallas(scene, o, d, 64, 4, 4)
+    tile = (12, 12)
+    origins, dirs = generate_rays(cam, 48, 48)
+    o = tile_image(origins, *tile).reshape(-1, 3)
+    d = tile_image(dirs, *tile).reshape(-1, 3)
+    kp, ks = suggest_cull_sizes(scene, cam, 48, 48, tile)
+    hit_p, occ_p, aux_p = culled_geometry_pallas(scene, o, d, 144, kp, ks)
+    hit_c, occ_c, aux_c = culled_geometry(scene, o, d, 144, kp, ks)
+    np.testing.assert_array_equal(np.asarray(hit_p.obj_id),
+                                  np.asarray(hit_c.obj_id))
+    np.testing.assert_array_equal(np.asarray(occ_p), np.asarray(occ_c))
+    np.testing.assert_array_equal(np.asarray(aux_p.j_local),
+                                  np.asarray(aux_c.j_local))
+    np.testing.assert_allclose(np.asarray(hit_p.t), np.asarray(hit_c.t),
+                               rtol=5e-5, atol=1e-4)
 
 
-# ---------------------------------------------------------------------------
-# Dynamic trip counts (r4): each tile scans only its measured survivor count
-# (counts as SMEM inputs, chunked fori_loop). Must be output-identical to
-# the static scan — invalid rows never update the carry, so the only change
-# is skipped dead work. Forced on here by dropping the threshold.
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def force_dynamic(monkeypatch):
+def test_culled_pallas_splits_tile_into_programs(monkeypatch):
+    """BLOCK_RAYS below the tile size: each tile runs as several programs
+    (grid (T, tile_p / BR)), each reading the same survivor rows."""
     from openglraytracer_tpu.ops import pallas_culled
-    monkeypatch.setattr(pallas_culled, "_DYNAMIC_THRESHOLD", -1)
-
-
-def test_dynamic_counts_match_culled_spheres(force_dynamic):
-    scene, cam = sphere_grid_scene(8)
-    kp, ks = suggest_cull_sizes(scene, cam, H, W, TILE)
-    o, d = _tiled_rays(cam)
-    _assert_matches_culled(scene, o, d, kp, ks)
-
-
-def test_dynamic_counts_match_culled_obb(force_dynamic):
+    monkeypatch.setattr(pallas_culled, "BLOCK_RAYS", 64)
+    assert pallas_culled.ray_block(TILE_P) == (64, TILE_P)
     scene, cam = _animated_scene()
     from openglraytracer_tpu.ops.accel import parse_cull_spec
     spec = suggest_cull_config(scene, cam, H, W, TILE)
@@ -251,7 +262,73 @@ def test_dynamic_counts_match_culled_obb(force_dynamic):
     _assert_matches_culled(scene, o, d, kp, ks, hot_m, kb, ksb)
 
 
-def test_dynamic_counts_hot_tiles(force_dynamic):
+@pytest.mark.parametrize("platform,expect", [("cpu", True), ("gpu", False)])
+def test_interpret_mode(platform, expect):
+    from openglraytracer_tpu.ops.pallas_culled import interpret_mode
+    assert interpret_mode(platform) is expect
+
+
+@pytest.mark.parametrize("platform", ["tpu", "rocm", "metal"])
+def test_interpret_mode_rejects_other_platforms(platform):
+    from openglraytracer_tpu.ops.pallas_culled import interpret_mode
+    with pytest.raises(RuntimeError, match=platform):
+        interpret_mode(platform)
+
+
+def test_box_rows_padded_and_origin_local():
+    """Primary box rows: 21 used columns padded to 24 with zeros; slots 6:9
+    hold R^T (o0 - pos), computed at full float32 precision."""
+    from openglraytracer_tpu.ops.accel import _box_table
+    from openglraytracer_tpu.ops.pallas_culled import _primary_box_rows
+    scene, _ = _animated_scene()
+    m = scene.boxes.count
+    o0 = jnp.asarray([0.3, -1.2, 4.0], jnp.float32)
+    idx = jnp.arange(m, dtype=jnp.int32)[None, :]
+    rows = np.asarray(_primary_box_rows(scene, o0, idx,
+                                        jnp.ones((1, m), bool)))
+    assert rows.shape == (1, m, 24)
+    np.testing.assert_array_equal(rows[..., 21:], 0.0)
+    np.testing.assert_array_equal(rows[..., 20], 1.0)
+    tab = np.asarray(_box_table(scene), np.float64)
+    rot = tab[:, 9:18].reshape(m, 3, 3)
+    ro = np.einsum("kij,ki->kj", rot, np.asarray(o0, np.float64) - tab[:, 6:9])
+    np.testing.assert_allclose(rows[0, :, 6:9], ro, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Trip counts: each tile's survivor loop runs its measured survivor count
+# (read from a global int32 table). Rows past the count are invalid padding,
+# so scanning every row of every list must give the identical result —
+# "full" forces that, "dynamic" is the shipped trip count.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(params=["dynamic", "full"])
+def trip_mode(request, monkeypatch):
+    if request.param == "full":
+        from openglraytracer_tpu.ops import pallas_culled
+        monkeypatch.setattr(
+            pallas_culled, "_trip_counts",
+            lambda count, k: jnp.full(count.shape, k, jnp.int32))
+    return request.param
+
+
+def test_dynamic_counts_match_culled_spheres(trip_mode):
+    scene, cam = sphere_grid_scene(8)
+    kp, ks = suggest_cull_sizes(scene, cam, H, W, TILE)
+    o, d = _tiled_rays(cam)
+    _assert_matches_culled(scene, o, d, kp, ks)
+
+
+def test_dynamic_counts_match_culled_obb(trip_mode):
+    scene, cam = _animated_scene()
+    from openglraytracer_tpu.ops.accel import parse_cull_spec
+    spec = suggest_cull_config(scene, cam, H, W, TILE)
+    _, kp, ks, hot_m, kb, ksb = parse_cull_spec(spec)
+    o, d = _tiled_rays(cam)
+    _assert_matches_culled(scene, o, d, kp, ks, hot_m, kb, ksb)
+
+
+def test_dynamic_counts_hot_tiles(trip_mode):
     """Hot tiles' sphere counts are zeroed (the dense pass overrides their
     occlusion) — the composition must still match accel.py exactly."""
     scene, cam = sphere_grid_scene(8)
@@ -260,7 +337,7 @@ def test_dynamic_counts_hot_tiles(force_dynamic):
     _assert_matches_culled(scene, o, d, kp, max(2, ks // 2), hot_m=4)
 
 
-def test_dynamic_counts_gradients(force_dynamic):
+def test_dynamic_counts_gradients(trip_mode):
     scene, cam = sphere_grid_scene(4)
     kp, ks = suggest_cull_sizes(scene, cam, H, W, TILE)
     o, d = _tiled_rays(cam)

@@ -1,6 +1,6 @@
 """Scaling-efficiency harness smoke tests on the 8-virtual-CPU mesh.
 
-CPU timings say nothing about TPU efficiency; these tests assert the harness
+CPU timings say nothing about GPU efficiency; these tests assert the harness
 MECHANICS — it sweeps device counts, produces consistent rows, and the
 sharded renders it times equal the single-device image (the efficiency
 number is only meaningful if every mesh size renders the same picture).
